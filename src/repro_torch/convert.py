@@ -1,0 +1,31 @@
+"""Carry a partitioned graph from the JAX package into the port.
+
+`graph_from_partition` takes the arrays of `repro.core.partition.
+partition_2d` (numpy, leading (R, C) dims) and builds the port's
+`LocalGraph2D` on a device, so both packages can search the very same
+partition.  BFS has no weights: the partitioned graph plays that role.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import Grid2D, LocalGraph2D
+
+
+def graph_from_partition(grid: Grid2D, col_off, row_idx, nnz,
+                         device) -> LocalGraph2D:
+    """(R, C, ncl + 1), (R, C, e_max), (R, C) int32 arrays -> LocalGraph2D
+    on `device`, shapes checked against `grid`."""
+    arrays = {"col_off": col_off, "row_idx": row_idx, "nnz": nnz}
+    out = {k: torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+           for k, a in arrays.items()}
+    R, C, ncl = grid.R, grid.C, grid.n_cols_local
+    if (out["col_off"].shape != (R, C, ncl + 1)
+            or out["row_idx"].dim() != 3
+            or out["row_idx"].shape[:2] != (R, C)
+            or out["nnz"].shape != (R, C)):
+        raise ValueError(
+            f"partition shapes {[tuple(t.shape) for t in out.values()]} do "
+            f"not fit grid {R}x{C} with {ncl} local columns")
+    return LocalGraph2D(**out)

@@ -1,0 +1,272 @@
+"""The port's frontier ops and stacked-grid exchanges, op by op against the
+JAX package's jnp functions (`repro.core.frontier`, `repro.dist`), in
+process, on random inputs: empty and full frontiers, S % 32 != 0, bit 31
+set in the bitmaps.  The port keeps bitmaps as int32 bit patterns, compared
+here as uint32 through numpy views.  Exact equality throughout.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import frontier as JF
+from repro.core.types import Grid2D as JGrid2D
+from repro.dist.strategy import emulate_exchange
+from repro.kernels.expand import make_expand_fn
+from repro_torch.core import frontier as F
+from repro_torch.core.types import Grid2D
+from repro_torch.dist import exchange as X
+from repro_torch.dist.topology import StackedTopology
+from repro_torch.kernels import expand as K
+from repro_torch.kernels import fold as KF
+
+
+def T(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def sink(x):
+    """Per-vertex state with the port's trailing sink slot."""
+    t = T(x)
+    return torch.cat([t, torch.zeros(1, dtype=t.dtype)])
+
+
+@pytest.mark.parametrize("n", [0, 1, 100])
+def test_exclusive_cumsum(n, rng):
+    x = rng.integers(0, 50, size=n).astype(np.int32)
+    eq(F.exclusive_cumsum(T(x)), JF.exclusive_cumsum(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("cnts", [[0, 0, 0], [40, 40, 40], [3, 0, 40],
+                                  [1, 39, 17]])
+@pytest.mark.parametrize("kernel_ops", [False, True])
+def test_compact_blocks(cnts, kernel_ops, rng):
+    vals = rng.integers(0, 999, size=(3, 40)).astype(np.int32)
+    cnts = np.asarray(cnts, np.int32)
+    out, total = F.compact_blocks(T(vals), T(cnts),
+                                  ops=KF if kernel_ops else None)
+    jout, jtotal = JF.compact_blocks(jnp.asarray(vals), jnp.asarray(cnts))
+    eq(out, jout)
+    assert int(total) == int(jtotal)
+
+
+@pytest.mark.parametrize("method", ["scatter", "sort"])
+@pytest.mark.parametrize("p_elig", [0.0, 0.5, 1.0])
+def test_winner_dedup(method, p_elig, rng):
+    v = rng.integers(0, 30, size=500).astype(np.int32)
+    elig = rng.random(500) < p_elig
+    eq(F.winner_dedup(T(v), T(elig), 30, method),
+       JF.winner_dedup(jnp.asarray(v), jnp.asarray(elig), 30, method))
+
+
+@pytest.mark.parametrize("cap,fill", [(64, 0), (64, 50), (8, 3)])
+def test_bucket_append(cap, fill, rng):
+    C = 4
+    dst = np.full((C, cap), -1, np.int32)
+    cnt = np.minimum(rng.integers(0, fill + 1, size=C), cap).astype(np.int32)
+    for c in range(C):
+        dst[c, :cnt[c]] = rng.integers(0, 100, size=cnt[c])
+    v = rng.integers(0, 100, size=200).astype(np.int32)
+    tgt = rng.integers(0, C, size=200).astype(np.int32)
+    take = rng.random(200) < 0.4
+    d, c = F.bucket_append(T(dst), T(cnt), T(v), T(tgt), T(take), C)
+    jd, jc = JF.bucket_append(jnp.asarray(dst), jnp.asarray(cnt),
+                              jnp.asarray(v), jnp.asarray(tgt),
+                              jnp.asarray(take), C)
+    eq(d, jd)
+    eq(c, jc)
+    buf = np.full(50, -1, np.int32)
+    b, c = F.append_padded(T(buf), torch.tensor(3, dtype=torch.int32),
+                           T(v[:60]), T(take[:60]))
+    jb, jc = JF.append_padded(jnp.asarray(buf), jnp.int32(3),
+                              jnp.asarray(v[:60]), jnp.asarray(take[:60]))
+    eq(b, jb)
+    assert int(c) == int(jc)
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 100])
+def test_pack_unpack_bitmap(S, rng):
+    mask = rng.random((3, S)) < 0.5
+    mask[:, -1] = True                          # the last bit of a word
+    if S >= 32:
+        mask[:, 31] = True                      # bit 31 of word 0
+    words = F.pack_bitmap(T(mask))
+    jwords = JF.pack_bitmap(jnp.asarray(mask))
+    eq(words.numpy().view(np.uint32), jwords)
+    eq(F.unpack_bitmap(words, S), JF.unpack_bitmap(jwords, S))
+
+
+def test_set_bits_bit31(rng):
+    n = 200
+    visited = rng.random(n) < 0.3
+    words = F.pack_bitmap(T(visited))
+    jwords = JF.pack_bitmap(jnp.asarray(visited))
+    v = np.array([31, 63, 0, 5, 191, 95], np.int32)      # bits 31 included
+    v = v[~visited[v]]
+    take = np.ones(v.shape, bool)
+    take[-1] = False
+    got = F.set_bits(words, T(v), T(take))
+    want = JF.set_bits(jwords, jnp.asarray(v), jnp.asarray(take))
+    eq(got.numpy().view(np.uint32), want)
+    assert (got.numpy().view(np.uint32) >> 31).any()
+
+
+def _csc(rng, ncl, n_rows, max_deg=6):
+    deg = rng.integers(0, max_deg, size=ncl).astype(np.int32)
+    col_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    row_idx = np.full(int(col_off[-1]) + 3, -1, np.int32)
+    row_idx[:col_off[-1]] = rng.integers(0, n_rows, size=col_off[-1])
+    return col_off, row_idx
+
+
+@pytest.mark.parametrize("front_total", [0, 13, 64])
+def test_reference_expand_chunk(front_total, rng):
+    col_off, row_idx = _csc(rng, 64, 128)
+    front = np.full(64, -1, np.int32)
+    front[:front_total] = rng.permutation(64)[:front_total]
+    fr = np.clip(front, 0, 63)
+    deg = np.where(np.arange(64) < front_total, col_off[fr + 1] - col_off[fr],
+                   0)
+    cumul = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    gids = np.arange(300, dtype=np.int32)
+    got = F.reference_expand_chunk(T(gids), T(cumul), T(front),
+                                   torch.tensor(front_total,
+                                                dtype=torch.int32),
+                                   T(col_off), T(row_idx))
+    want = JF.reference_expand_chunk(jnp.asarray(gids), jnp.asarray(cumul),
+                                     jnp.asarray(front),
+                                     jnp.int32(front_total),
+                                     jnp.asarray(col_off),
+                                     jnp.asarray(row_idx))
+    for g, w in zip(got, want):
+        eq(g, w)
+
+
+@pytest.mark.parametrize("front_total", [0, 20, 64])
+@pytest.mark.parametrize("through_kernel", [False, True])
+def test_expand_frontier(front_total, through_kernel, rng):
+    """The chunk loop, plain scan or through the kernel wrapper (its plain
+    version on CPU tensors, with the incrementally kept bitmap), against
+    the JAX loop with the Pallas kernel in interpret mode."""
+    grid = Grid2D(2, 2, 128)            # S = 32, n_rows 64, ncl 64
+    i, j = 1, 0
+    col_off, row_idx = _csc(rng, 64, 64)
+    front = np.full(64, -1, np.int32)
+    front[:front_total] = rng.permutation(64)[:front_total]
+    visited = rng.random(64) < 0.2
+    level = np.where(visited, 0, -1).astype(np.int32)
+    pred = np.where(visited, 7, -1).astype(np.int32)
+    ex = F.expand_frontier(
+        T(col_off), T(row_idx), sink(visited), sink(level), sink(pred),
+        T(front), torch.tensor(front_total, dtype=torch.int32), 3,
+        grid=grid, i=i, j=j, edge_chunk=40,
+        expand_fn=K.expand_chunk if through_kernel else None)
+    jex = JF.expand_frontier(
+        jnp.asarray(col_off), jnp.asarray(row_idx), jnp.asarray(visited),
+        jnp.asarray(level), jnp.asarray(pred), jnp.asarray(front),
+        jnp.int32(front_total), jnp.int32(3),
+        grid=JGrid2D(2, 2, 128), i=i, j=j, edge_chunk=40,
+        expand_fn=make_expand_fn(path="pallas-interpret")
+        if through_kernel else None)
+    for got, want in zip(ex[:3], jex[:3]):
+        eq(got[:-1], want)
+    eq(ex.dst, jex.dst)
+    eq(ex.dst_cnt, jex.dst_cnt)
+    assert ex.edges_scanned == int(jex.edges_scanned)
+
+
+@pytest.mark.parametrize("p_cnt", [0.0, 0.5, 1.0])
+def test_update_frontier(p_cnt, rng):
+    grid = Grid2D(2, 2, 128)
+    C, S, i, j = 2, 32, 0, 1
+    int_cnt = (rng.random(C) * p_cnt * S).astype(np.int32)
+    int_verts = np.full((C, S), -1, np.int32)
+    for m in range(C):
+        int_verts[m, :int_cnt[m]] = j * S + rng.permutation(S)[:int_cnt[m]]
+    visited = rng.random(64) < 0.3
+    level = np.where(visited, 1, -1).astype(np.int32)
+    pred = np.where(visited, 3, -1).astype(np.int32)
+    up = F.update_frontier(T(int_verts), T(int_cnt), sink(visited),
+                           sink(level), sink(pred), 2, grid=grid, i=i, j=j)
+    jup = JF.update_frontier(jnp.asarray(int_verts), jnp.asarray(int_cnt),
+                             jnp.asarray(visited), jnp.asarray(level),
+                             jnp.asarray(pred), jnp.int32(2),
+                             grid=JGrid2D(2, 2, 128), i=i, j=j)
+    for got, want in zip(up[:3], jup[:3]):
+        eq(got[:-1], want)
+    eq(up.new_front, jup.new_front)
+    assert int(up.new_cnt) == int(jup.new_cnt)
+
+
+# ----------------------------------------------------------------------------
+# The stacked-grid exchanges
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
+def test_col_all_to_all_is_flat_exchange(R, C, rng):
+    topo = StackedTopology(Grid2D(R, C, R * C * 8), torch.device("cpu"))
+    x = rng.integers(0, 2**31 - 1, size=(R, C, C, 5)).astype(np.int32)
+    recv = topo.col_all_to_all(T(x)).numpy()
+    for i in range(R):
+        eq(recv[i], emulate_exchange(x[i], "flat"))
+    counts = x[..., 0, 0] % 1000
+    assert int(topo.psum_all(T(counts))) == int(counts.sum())
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
+@pytest.mark.parametrize("kernel_ops", [False, True])
+def test_expand_exchange(R, C, kernel_ops, rng):
+    S = 8
+    topo = StackedTopology(Grid2D(R, C, R * C * S), torch.device("cpu"))
+    cnt = rng.integers(0, S + 1, size=(R, C)).astype(np.int32)
+    cnt[0, 0] = 0
+    front = np.full((R, C, S), -1, np.int32)
+    for i in range(R):
+        for j in range(C):
+            front[i, j, :cnt[i, j]] = rng.integers(0, R * S, size=cnt[i, j])
+    af, tot = X.expand_exchange(T(front), T(cnt), topo=topo,
+                                ops=KF if kernel_ops else None)
+    for i in range(R):
+        for j in range(C):
+            # JAX: row all_gather of the column, then compact_blocks
+            jf, jt = JF.compact_blocks(jnp.asarray(front[:, j]),
+                                       jnp.asarray(cnt[:, j]))
+            eq(af[i, j], jf)
+            assert int(tot[i, j]) == int(jt)
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
+def test_list_fold_and_resolve_preds(R, C, rng):
+    S = 6
+    grid = Grid2D(R, C, R * C * S)
+    topo = StackedTopology(grid, torch.device("cpu"))
+    dst = rng.integers(-1, 50, size=(R, C, C, S)).astype(np.int32)
+    dst_cnt = rng.integers(0, S + 1, size=(R, C, C)).astype(np.int32)
+    iv, ic = X.ListFold().fold(T(dst), T(dst_cnt), topo=topo)
+    for i in range(R):
+        msg = np.concatenate([dst_cnt[i][..., None], dst[i]], axis=-1)
+        recv = emulate_exchange(msg, "flat")
+        eq(iv[i], recv[..., 1:])
+        eq(ic[i], recv[..., 0])
+    assert X.ListFold().wire_bytes(grid) == C * (4 * S + 4)
+
+    # preds with deferred markers -(c+2) on owned blocks
+    nrl = grid.n_rows_local
+    pred = rng.integers(0, 100, size=(R, C, nrl)).astype(np.int32)
+    marks = rng.random((R, C, nrl)) < 0.4
+    pred = np.where(marks, -(rng.integers(0, C, size=(R, C, nrl)) + 2), pred)
+    got = X.resolve_preds(T(pred), topo=topo).numpy()
+    for i in range(R):
+        recv = emulate_exchange(pred[i].reshape(C, C, S), "flat")
+        for j in range(C):
+            # JAX resolve_preds, evaluated on the emulated all_to_all
+            pb = jnp.asarray(pred[i, j].reshape(C, S))
+            own = pb[j]
+            sender = jnp.clip(-own - 2, 0, C - 1)
+            from_sender = jnp.take_along_axis(jnp.asarray(recv[j]),
+                                              sender[None, :], axis=0)[0]
+            eq(got[i, j], jnp.where(own < -1, from_sender, own))

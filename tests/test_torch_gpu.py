@@ -1,0 +1,76 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked `gpu`: without a CUDA device they skip (decided in a fixture).  This
+file imports no jax, so it runs where only torch is installed:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Integer outputs: exact equality.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import frontier as F
+from repro_torch.kernels import expand as K
+from repro_torch.kernels import fold as KF
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _random_block(rng, ncl, n_rows, front_total, max_deg=9):
+    deg = rng.integers(0, max_deg, size=ncl).astype(np.int32)
+    col_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = max(int(col_off[-1]), 1)
+    row_idx = rng.integers(0, n_rows, size=nnz + 5).astype(np.int32)
+    row_idx[nnz:] = -1
+    front = np.full(ncl, -1, np.int32)
+    front[:front_total] = rng.permutation(ncl)[:front_total]
+    visited = rng.random(n_rows) < 0.3
+    return col_off, row_idx, front, visited
+
+
+def _random_rows(rng, N, S, p):
+    mask = rng.random((N, S)) < p
+    a = rng.integers(-5, 1000, size=(N, S)).astype(np.int32)
+    b = rng.integers(0, 2**31 - 1, size=(N, S)).astype(np.int32)
+    return mask, a, b
+
+
+@pytest.mark.gpu
+def test_kernels_equal_plain_on_card(cuda_device, rng):
+    """Both kernels equal their plain versions, and each launch counts."""
+    col_off, row_idx, front, visited = _random_block(rng, 3000, 5000, 2000)
+    fr = np.clip(front, 0, 2999)
+    deg = np.where(np.arange(3000) < 2000, col_off[fr + 1] - col_off[fr], 0)
+    cumul = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    words = F.pack_bitmap(torch.from_numpy(visited))
+    args = [torch.from_numpy(x) for x in (cumul, front)] + [
+        torch.tensor(2000, dtype=torch.int32)] + [
+        torch.from_numpy(x) for x in (col_off, row_idx)] + [words]
+    for start, E in ((0, 4096), (1000, 3000), (int(cumul[-1]) - 5, 512)):
+        plain = K.plain_expand_chunk(start, E, *args)
+        n0 = K.expand_chunk.launches
+        kern = K.expand_chunk(start, E, *[a.to(cuda_device) for a in args])
+        torch.cuda.synchronize()
+        assert K.expand_chunk.launches == n0 + 1
+        for p, k in zip(plain, kern):
+            assert torch.equal(p, k.cpu())
+    mask, a, b = _random_rows(rng, 3, 100_003, 0.4)
+    tm, ta, tb = (torch.from_numpy(x) for x in (mask, a, b))
+    plain = KF.plain_compact_rows(tm, (ta, tb), (-1, 5))
+    kern = KF.compact_rows(tm.to(cuda_device),
+                           (ta.to(cuda_device), tb.to(cuda_device)), (-1, 5))
+    torch.cuda.synchronize()
+    for p, k in zip(plain[0] + (plain[1],), kern[0] + (kern[1],)):
+        assert torch.equal(p, k.cpu())

@@ -1,0 +1,170 @@
+"""The port's two kernels against the JAX package's Pallas kernels.
+
+  * the plain `expand_chunk` equals `repro.kernels.expand.expand_chunk(...,
+    interpret=True)` on (v, won, u), every lane, masked lanes included --
+    on random CSC blocks and on real chunks of an R-MAT search, at chunk
+    lengths that are and are not multiples of 512;
+  * the plain `compact_rows` equals `repro.kernels.fold.compact_rows(...,
+    interpret=True)`;
+  * CPU tensors take the plain version and launch nothing; "kernel" on the
+    CPU raises.
+
+The kernels themselves run only on a card: tests/test_torch_gpu.py.
+
+Everything is integer, so every comparison is exact equality.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.graphgen import rmat_edges as jax_rmat_edges
+from repro.kernels.expand import expand_chunk as jax_expand_chunk
+from repro.kernels.fold import compact_rows as jax_compact_rows
+from repro_torch.api import BFSConfig, DistGraph
+from repro_torch.core import frontier as F
+from repro_torch.kernels import expand as K
+from repro_torch.kernels import fold as KF
+from repro_torch.kernels.select import resolve_path
+
+SCALE = 8
+
+
+def _random_block(rng, ncl, n_rows, front_total, max_deg=9):
+    deg = rng.integers(0, max_deg, size=ncl).astype(np.int32)
+    col_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = max(int(col_off[-1]), 1)
+    row_idx = rng.integers(0, n_rows, size=nnz + 5).astype(np.int32)
+    row_idx[nnz:] = -1                                   # padding
+    front = np.full(ncl, -1, np.int32)
+    front[:front_total] = rng.permutation(ncl)[:front_total]
+    visited = rng.random(n_rows) < 0.3
+    return col_off, row_idx, front, visited
+
+
+def _both_expand(col_off, row_idx, front, front_total, visited, start, E):
+    """(jax (v, won, u), port (v, won, u)) as numpy for one chunk."""
+    ncl = front.shape[0]
+    fr = np.clip(front, 0, ncl - 1)
+    deg = np.where(np.arange(ncl) < front_total,
+                   col_off[fr + 1] - col_off[fr], 0)
+    cumul = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    words = np.asarray(F.pack_bitmap(torch.from_numpy(visited)))
+    gids = jnp.asarray(start + np.arange(E, dtype=np.int32))
+    jv, jwon, ju = jax_expand_chunk(
+        gids, jnp.asarray(cumul), jnp.asarray(front), jnp.int32(front_total),
+        jnp.asarray(col_off), jnp.asarray(row_idx), jnp.asarray(visited),
+        jnp.asarray(words.view(np.uint32)), interpret=True)
+    tv, twon, tu = K.expand_chunk(
+        start, E, torch.from_numpy(cumul), torch.from_numpy(front),
+        torch.tensor(front_total, dtype=torch.int32),
+        torch.from_numpy(col_off), torch.from_numpy(row_idx),
+        torch.from_numpy(words))
+    return ((np.asarray(jv), np.asarray(jwon), np.asarray(ju)),
+            (tv.numpy(), twon.numpy(), tu.numpy()))
+
+
+@pytest.mark.parametrize("ncl,front_total,E,start", [
+    (64, 64, 512, 0),        # full frontier, one tile
+    (64, 0, 256, 0),         # empty frontier: every lane masked
+    (100, 37, 1000, 0),      # chunk not a multiple of 512 (tile 500)
+    (50, 20, 96, 64),        # small tile, chunk starting mid-frontier
+    (200, 150, 1536, 512),   # three tiles, masked tail
+])
+def test_plain_expand_chunk_equals_pallas(ncl, front_total, E, start, rng):
+    col_off, row_idx, front, visited = _random_block(rng, ncl, 300,
+                                                     front_total)
+    (jv, jwon, ju), (tv, twon, tu) = _both_expand(
+        col_off, row_idx, front, front_total, visited, start, E)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(twon, jwon)
+    np.testing.assert_array_equal(tu, ju)
+
+
+def test_plain_expand_chunk_real_chunks():
+    """Real chunks: each level of an R-MAT search at 1x1, frontier and
+    visited set taken from the finished search's levels."""
+    edges = np.asarray(jax_rmat_edges(jax.random.key(42), SCALE, 16))
+    n = 1 << SCALE
+    graph = DistGraph.from_edges(edges, BFSConfig(), device="cpu", n=n)
+    deg = np.bincount(edges[0], minlength=n)
+    root = int(np.random.default_rng(0).choice(np.flatnonzero(deg > 0)))
+    level = graph.session().bfs(root).level.numpy()
+    col_off = graph.csc.col_off[0, 0].numpy()
+    row_idx = graph.csc.row_idx[0, 0].numpy()
+    for lvl in range(int(level.max()) + 1):
+        members = np.flatnonzero(level == lvl).astype(np.int32)
+        front = np.full(n, -1, np.int32)
+        front[:members.size] = members
+        visited = (level >= 0) & (level <= lvl)
+        total = int((col_off[members + 1] - col_off[members]).sum())
+        for start, E in ((0, 1000), (0, 2048), (max(total - 700, 0), 1024)):
+            (jv, jwon, ju), (tv, twon, tu) = _both_expand(
+                col_off, row_idx, front, members.size, visited, start, E)
+            np.testing.assert_array_equal(tv, jv)
+            np.testing.assert_array_equal(twon, jwon)
+            np.testing.assert_array_equal(tu, ju)
+
+
+def _random_rows(rng, N, S, p):
+    mask = rng.random((N, S)) < p
+    a = rng.integers(-5, 1000, size=(N, S)).astype(np.int32)
+    b = rng.integers(0, 2**31 - 1, size=(N, S)).astype(np.int32)
+    return mask, a, b
+
+
+@pytest.mark.parametrize("N,S,p", [(1, 1000, 0.5), (3, 77, 0.0),
+                                   (2, 64, 1.0), (4, 513, 0.1)])
+def test_plain_compact_rows_equals_pallas(N, S, p, rng):
+    mask, a, b = _random_rows(rng, N, S, p)
+    (ja, jb), jc = jax_compact_rows(jnp.asarray(mask),
+                                    (jnp.asarray(a), jnp.asarray(b)),
+                                    (-1, 7), interpret=True)
+    (ta, tb), tc = KF.compact_rows(torch.from_numpy(mask),
+                                   (torch.from_numpy(a), torch.from_numpy(b)),
+                                   (-1, 7))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_plain_compact_rows_real_exchange_row():
+    """The main path's shape: one row of R padded frontier blocks, as
+    `compact_blocks` hands it to the kernel."""
+    rng = np.random.default_rng(3)
+    R, S = 4, 256
+    vals = rng.integers(0, 1024, size=(R, S)).astype(np.int32)
+    cnts = np.array([0, 256, 17, 100], np.int32)
+    mask = np.arange(S)[None, :] < cnts[:, None]
+    (jo,), _ = jax_compact_rows(jnp.asarray(mask.reshape(1, -1)),
+                                (jnp.asarray(vals.reshape(1, -1)),), (-1,),
+                                interpret=True)
+    out, total = F.compact_blocks(torch.from_numpy(vals),
+                                  torch.from_numpy(cnts), ops=KF)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jo)[0])
+    assert int(total) == int(cnts.sum())
+
+
+def test_cpu_tensors_launch_nothing(rng):
+    before = (K.expand_chunk.launches, KF.compact_rows.launches)
+    col_off, row_idx, front, visited = _random_block(rng, 32, 100, 10)
+    _both_expand(col_off, row_idx, front, 10, visited, 0, 512)
+    mask, a, _ = _random_rows(rng, 2, 50, 0.5)
+    KF.compact_rows(torch.from_numpy(mask), (torch.from_numpy(a),), (-1,))
+    edges = np.asarray(jax_rmat_edges(jax.random.key(42), 6, 4))
+    DistGraph.from_edges(edges, BFSConfig(grid=(2, 2)), device="cpu") \
+        .session().bfs(int(edges[0, 0]))
+    assert (K.expand_chunk.launches, KF.compact_rows.launches) == before
+
+
+@pytest.mark.parametrize("knob", ["expand", "fold"])
+def test_kernel_path_on_cpu_raises(knob):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        resolve_path("kernel", "cpu", knob=knob)
+    edges = np.asarray(jax_rmat_edges(jax.random.key(42), 6, 4))
+    graph = DistGraph.from_edges(edges, BFSConfig(), device="cpu")
+    with pytest.raises(ValueError, match=f"{knob}='kernel' needs a CUDA"):
+        graph.session(BFSConfig(**{knob: "kernel"}))
+    assert resolve_path("auto", "cpu", knob=knob) == "reference"
+    assert resolve_path("reference", "cpu", knob=knob) == "reference"
