@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's two session paths once on one NVIDIA GPU and
+check them.
 
-    python3 chip_smoke.py [--scale 26] [--roots 64] [--batch 16] [--seed 1]
+    python3 chip_smoke.py [--scale 26] [--roots 64] [--td-roots 16]
+                          [--batch 8] [--dir-batch 4] [--seed 1]
 
 Phases, one line or more each on stdout:
   1. device    the card's name and power limit (nvidia-smi) and torch's view;
-  2. build     nvcc builds both CUDA kernels from src/repro_torch/csrc for
-               sm_90a (-Xptxas -v register / shared-memory summary);
+  2. build     nvcc builds every CUDA kernel from src/repro_torch/csrc for
+               sm_90a, all sources in parallel (-Xptxas -v register /
+               shared-memory summary);
   3. parity    each kernel against its plain torch version on the card, bit
-               for bit, on random inputs;
-  4. run       the Graph500 "toy" problem class by default: R-MAT SCALE 26,
-               edgefactor 16, generated on the card from --seed, planned
-               with `DistGraph.from_edges` on a 2x2 grid stacked on the card
-               (edge_chunk 2^22), searched from --roots roots, each root
-               timed alone and validated by the Graph500 rules on the card,
-               then one batched `bfs(roots[:batch])` held equal to those
-               roots' scalar results; harmonic-mean TEPS, peak memory, launch
-               counts (each kernel's count must be > 0);
-  3b. parity   each kernel again on one real chunk and one real expand-
-               exchange row captured from that run, with its time (CUDA
-               events) beside its plain version's and its bytes bound;
+               for bit, on random inputs (pack/unpack_bits with S % 32 != 0
+               and all-false / all-true masks; bottomup_chunk with
+               block % 32 != 0, an empty and a full frontier, total = 0 and
+               a chunk straddling the live total);
+  4. run       the top-down path at the Graph500 "toy" problem class by
+               default: R-MAT SCALE 26, edgefactor 16, generated on the card
+               from --seed, planned with `DistGraph.from_edges` on a 2x2
+               grid stacked on the card (edge_chunk 2^22), --td-roots roots
+               each timed alone and validated by the Graph500 rules on the
+               card, then one batched `bfs(roots[:batch])` held equal to
+               those roots' scalar results; harmonic-mean TEPS, peak memory,
+               launch counts (B1 and B2 must be > 0);
+  3b. parity   B1 and B2 again on one real chunk and one real expand-
+               exchange row captured from that run, with their time (CUDA
+               events) beside their plain versions' and their bytes bound;
   5. path      one root again with expand="reference", fold="reference":
                levels, preds, n_levels and edges_scanned equal the kernel
                path's;
+  7. dir-run   the same resident graph, `ensure_csr()`, then the direction-
+               optimised path `BFSConfig(direction=True, fold_codec=
+               "bitmap")`: --roots roots each timed alone and validated;
+               the first 8 equal the top-down path's levels, preds and
+               n_levels; `directions` holds a bottom-up level; a batched
+               `bfs(roots[:dir_batch])` equals the scalar results; launch
+               counts of B1, B2, B3, B4 and B7 must each be > 0;
+  7b. parity   B3, B4 and B7 on one real call each captured from phase 7,
+               with time, plain time and bytes bound;
+  8. dir-path  one root with expand, fold and bottomup = "reference": equal
+               to the kernel path (levels, preds, n_levels, edges_scanned,
+               directions); one root with direction="bottomup": levels and
+               preds equal top-down;
   6. report    the {"kernels": [...]} line, the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
@@ -41,6 +60,7 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, published peak
+TD_EQUAL_ROOTS = 8               # direction roots held to the top-down path
 
 
 def log(msg: str) -> None:
@@ -104,20 +124,84 @@ def max_abs_err(torch, a, b) -> int:
     return err
 
 
+def check_equal(torch, what, a, b) -> int:
+    err = max_abs_err(torch, a, b)
+    if err:
+        raise AssertionError(f"{what} differs from its plain version "
+                             f"(max_abs_err {err})")
+    return err
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+               bytes_):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def parity_random_dir(torch, dev, gen, KF, KB) -> None:
+    """Phase 3 for B3, B4 and B7: random inputs, bit for bit."""
+    for N, S, p in ((8, 1 << 24, 0.3), (3, 1_000_003, 0.6), (2, 77, 0.0),
+                    (5, 33, 1.0)):
+        mask = torch.rand((N, S), generator=gen, device=dev) < p
+        words = KF.pack_bits(mask)
+        err = check_equal(torch, "pack_bits", (words,),
+                          (KF.plain_pack_bits(mask),))
+        err += check_equal(torch, "unpack_bits", (KF.unpack_bits(words, S),),
+                           (KF.plain_unpack_bits(words, S), mask))
+        log(f"[3 parity] pack_bits + unpack_bits random N={N} S={S} p={p}: "
+            f"max_abs_err {err}")
+    R, block = 2, (1 << 20) + 5                 # block % 32 != 0
+    nrl = 2 * block
+    deg = torch.randint(0, 17, (nrl,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    row_off = torch.zeros(nrl + 1, dtype=torch.int32, device=dev)
+    row_off[1:] = torch.cumsum(deg, 0)
+    col_idx = torch.randint(0, R * block, (int(row_off[-1]) + 11,),
+                            generator=gen, device=dev, dtype=torch.int32)
+    visited = torch.rand(nrl, generator=gen, device=dev) < 0.4
+    for frac in (0.0, 0.5, 1.0):
+        fmask = torch.rand((R, block), generator=gen, device=dev) < frac
+        words = KF.plain_pack_bits(fmask).reshape(-1)
+        for zero_total in (False, True):
+            masked = torch.where(visited | zero_total, 0, deg)
+            cumul = torch.zeros(nrl + 1, dtype=torch.int32, device=dev)
+            cumul[1:] = torch.cumsum(masked, 0)
+            total = cumul[nrl].clone()
+            t = int(total)
+            args = (cumul, total, row_off, col_idx, words)
+            for start, E in ((0, 1 << 22), (max(t - 5000, 0), 1 << 20)):
+                err = check_equal(
+                    torch, "bottomup_chunk",
+                    KB.bottomup_chunk(start, E, *args, block=block),
+                    KB.plain_bottomup_chunk(start, E, *args, block=block))
+                log(f"[3 parity] bottomup_chunk random frontier {frac} "
+                    f"total {t} start={start} E={E}: max_abs_err {err}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=26)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--roots", type=int, default=64)
-    ap.add_argument("--batch", type=int, default=16,
-                    help="roots of the batched search (its (B, n) output "
-                         "must fit on the card beside the graph)")
+    ap.add_argument("--roots", type=int, default=64,
+                    help="timed roots of the direction-optimised path")
+    ap.add_argument("--td-roots", type=int, default=16,
+                    help="timed roots of the top-down path")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="roots of the top-down batched search (its (B, n) "
+                         "output must fit on the card beside the graph)")
+    ap.add_argument("--dir-batch", type=int, default=4,
+                    help="roots of the direction path's batched search")
     ap.add_argument("--grid", default="2x2")
     ap.add_argument("--edge-chunk", type=int, default=1 << 22)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         log("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
@@ -135,6 +219,7 @@ def main() -> int:
     from repro_torch.core.validate import count_component_edges, \
         harmonic_mean, validate_bfs
     from repro_torch.graphgen import rmat_edges
+    from repro_torch.kernels import bottomup as KB
     from repro_torch.kernels import build
     from repro_torch.kernels import expand as K
     from repro_torch.kernels import fold as KF
@@ -181,28 +266,24 @@ def main() -> int:
     rnd = (cumul, front, ftot, col_off, row_idx, words)
     for start, E in ((0, 1 << 22), (int(total) - 5000, 1 << 20),
                      (12345, 3000)):
-        err = max_abs_err(torch, K.expand_chunk(start, E, *rnd),
+        err = check_equal(torch, "expand_chunk",
+                          K.expand_chunk(start, E, *rnd),
                           K.plain_expand_chunk(start, E, *rnd))
         log(f"[3 parity] expand_chunk random start={start} E={E}: "
             f"max_abs_err {err}")
-        if err:
-            raise AssertionError("expand_chunk differs from its plain "
-                                 "version")
     for N, S, p in ((1, 1 << 25, 0.3), (3, 1_000_003, 0.9), (2, 77, 0.0)):
         mask = torch.rand((N, S), generator=gen, device=dev) < p
         vals = torch.randint(-9, 1 << 30, (N, S), generator=gen, device=dev,
                              dtype=torch.int32)
         kout, kcnt = KF.compact_rows(mask, (vals,), (-1,))
         pout, pcnt = KF.plain_compact_rows(mask, (vals,), (-1,))
-        err = max_abs_err(torch, kout + (kcnt,), pout + (pcnt,))
+        err = check_equal(torch, "compact_rows", kout + (kcnt,),
+                          pout + (pcnt,))
         log(f"[3 parity] compact_rows random N={N} S={S}: max_abs_err {err}")
-        if err:
-            raise AssertionError("compact_rows differs from its plain "
-                                 "version")
-    torch.cuda.synchronize()
     del rnd, deg, col_off, row_idx, front, visited, cumul, words
+    parity_random_dir(torch, dev, gen, KF, KB)
 
-    # -- 4. the full-size run -------------------------------------------------
+    # -- 4. the full-size top-down run ---------------------------------------
     R, C = (int(x) for x in args.grid.lower().split("x"))
     t0 = time.perf_counter()
     edges = rmat_edges(args.scale, args.edge_factor,
@@ -235,6 +316,7 @@ def main() -> int:
                           .manual_seed(args.seed))[:args.roots]
     roots = cand[pick].tolist()
     del deg0, cand, pick
+    td_roots = roots[:args.td_roots]
     sess = graph.session()
     eng = sess.engine
     assert eng.expand_path == "kernel" and eng.fold_path == "kernel"
@@ -255,13 +337,13 @@ def main() -> int:
     log(f"[4 run] warm-up search {warm_s:.2f} s (taps: {expand_tap.calls} "
         f"chunks, {compact_tap.calls} exchange rows)")
 
-    # the main path: counts to 0, timed scalar searches, one batched search
+    # the top-down path: counts to 0, timed scalar searches, one batch
     K.expand_chunk.launches = 0
     KF.compact_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times, teps, scalar = [], [], []
-    scanned_total = 0
-    for r in roots:
+    keep = max(args.batch, TD_EQUAL_ROOTS)
+    for r in td_roots:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = sess.bfs(r)
@@ -274,22 +356,23 @@ def main() -> int:
         val_s = time.perf_counter() - t1
         times.append(dt)
         teps.append(m / dt)
-        scanned_total += out.edges_scanned
-        if len(scalar) < args.batch:
+        if len(scalar) < keep:
             scalar.append((out.level.cpu(), out.pred.cpu(),
                            int(out.n_levels), out.edges_scanned))
         log(f"[4 run] root {r}: {int(out.n_levels)} levels, "
             f"{out.edges_scanned} edges scanned, component {m} edges, "
             f"{dt:.3f} s, {m / dt:.4e} TEPS, validated in {val_s:.1f} s")
+    del out, level, pred
+    n_batch = min(args.batch, len(scalar))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    batch = sess.bfs(roots[:len(scalar)])
+    batch = sess.bfs(td_roots[:n_batch])
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     launches = {"expand_chunk": K.expand_chunk.launches,
                 "compact_rows": KF.compact_rows.launches}
     peak = torch.cuda.max_memory_allocated()
-    for b, (lv, pr, nl, es) in enumerate(scalar):
+    for b, (lv, pr, nl, es) in enumerate(scalar[:n_batch]):
         if not (torch.equal(batch.level[b].cpu(), lv)
                 and torch.equal(batch.pred[b].cpu(), pr)
                 and int(batch.n_levels[b]) == nl
@@ -297,9 +380,9 @@ def main() -> int:
             raise AssertionError(f"batched search {b} differs from scalar")
     del batch
     hm = harmonic_mean(teps)
-    n_searches = len(roots) + len(scalar)
-    log(f"[4 run] {len(roots)} roots validated (Graph500 rules); batched "
-        f"bfs({len(scalar)} roots) equal to scalar, {batch_s:.2f} s")
+    n_searches = len(td_roots) + n_batch
+    log(f"[4 run] {len(td_roots)} roots validated (Graph500 rules); batched "
+        f"bfs({n_batch} roots) equal to scalar, {batch_s:.2f} s")
     log(f"[4 run] harmonic-mean TEPS {hm:.6e}; mean search "
         f"{sum(times) / len(times):.4f} s; peak memory {peak / 2**30:.2f} "
         f"GiB; launches over {n_searches} searches {launches}")
@@ -308,20 +391,17 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
     report["run"] = {"n": n, "directed_edges": int(edges.shape[1]),
                      "gen_s": gen_s, "plan_s": plan_s, "index_s": index_s,
-                     "roots": roots, "search_s": times, "teps": teps,
+                     "roots": td_roots, "search_s": times, "teps": teps,
                      "harmonic_teps": hm, "batch_s": batch_s,
                      "peak_bytes": peak, "launches": launches,
-                     "searches": n_searches,
-                     "edges_scanned_scalar_total": scanned_total}
+                     "searches": n_searches}
 
     # -- 3b. parity and time on real main-path inputs ------------------------
     kernels = []
     (start, E, *eargs), ekw = expand_tap.saved
     kern = K.expand_chunk(start, E, *eargs, **ekw)
-    plain = K.plain_expand_chunk(start, E, *eargs, **ekw)
-    err = max_abs_err(torch, kern, plain)
-    if err:
-        raise AssertionError("expand_chunk differs on the real chunk")
+    err = check_equal(torch, "expand_chunk on the real chunk", kern,
+                      K.plain_expand_chunk(start, E, *eargs, **ekw))
     cumul, front, ftot, col_off, row_idx, words = eargs
     live = int((start + torch.arange(E, device=dev) < cumul[ftot]).sum())
     k_lo = int(torch.searchsorted(cumul[:int(ftot) + 1],
@@ -333,7 +413,7 @@ def main() -> int:
                                                device=dev,
                                                dtype=torch.int32),
                                   right=True)) - 1
-    v, won, u = kern
+    v = kern[0]
     n_words = int(torch.unique(v[:live] >> 5).numel())
     # row_idx + the touched cumul/front/col_off entries + visited words in,
     # v/u/won out
@@ -342,42 +422,33 @@ def main() -> int:
     e_plain = cuda_ms(torch,
                       lambda: K.plain_expand_chunk(start, E, *eargs, **ekw),
                       reps=3)
-    kernels.append({
-        "name": "expand_chunk", "route": "cuda",
-        "source": "src/repro_torch/csrc/expand.cu",
-        "replaces": "src/repro/kernels/expand.py:103",
-        "launches": launches["expand_chunk"], "max_abs_err": err,
-        "ms": e_ms, "plain_ms": e_plain,
-        "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None})
+    kernels.append(kernel_row(
+        "expand_chunk", "src/repro_torch/csrc/expand.cu",
+        "src/repro/kernels/expand.py:103", launches["expand_chunk"], err,
+        e_ms, e_plain, e_bytes))
     log(f"[3b parity] expand_chunk real chunk start={start} E={E} live={live}"
         f" frontier slots {k_hi - k_lo + 1}: max_abs_err {err}; kernel "
         f"{e_ms:.4f} ms, plain {e_plain:.4f} ms, bound "
         f"{kernels[-1]['bound_ms']:.4f} ms ({e_bytes} B)")
 
-    (mask, arrays, fills), ckw = compact_tap.saved
+    (mask, arrays, fills), _ = compact_tap.saved
     kern = KF.compact_rows(mask, arrays, fills)
     plain = KF.plain_compact_rows(mask, arrays, fills)
-    err = max_abs_err(torch, kern[0] + (kern[1],), plain[0] + (plain[1],))
-    if err:
-        raise AssertionError("compact_rows differs on the real row")
+    err = check_equal(torch, "compact_rows on the real row",
+                      kern[0] + (kern[1],), plain[0] + (plain[1],))
     N, S = mask.shape
     c_bytes = N * S * (1 + 8 * len(arrays)) + 4 * N
     c_ms = cuda_ms(torch, lambda: KF.compact_rows(mask, arrays, fills))
     c_plain = cuda_ms(torch,
                       lambda: KF.plain_compact_rows(mask, arrays, fills))
-    kernels.append({
-        "name": "compact_rows", "route": "cuda",
-        "source": "src/repro_torch/csrc/compact.cu",
-        "replaces": "src/repro/kernels/fold.py:112",
-        "launches": launches["compact_rows"], "max_abs_err": err,
-        "ms": c_ms, "plain_ms": c_plain,
-        "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None})
+    kernels.append(kernel_row(
+        "compact_rows", "src/repro_torch/csrc/compact.cu",
+        "src/repro/kernels/fold.py:112", launches["compact_rows"], err,
+        c_ms, c_plain, c_bytes))
     log(f"[3b parity] compact_rows real exchange row N={N} S={S} valid "
         f"{int(kern[1].sum())}: max_abs_err {err}; kernel {c_ms:.4f} ms, "
         f"plain {c_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
-    del expand_tap, compact_tap, eargs, kern, plain, v, won, u
+    del expand_tap, compact_tap, eargs, kern, plain, v, mask, arrays
 
     # -- 5. whole-path parity: the plain path on the card --------------------
     ref_sess = graph.session(BFSConfig(grid=(R, C),
@@ -399,7 +470,242 @@ def main() -> int:
         raise AssertionError("the plain path differs from the kernel path")
     report["path_parity"] = {"scale": args.scale, "root": roots[0],
                              "reference_s": ref_s, "equal": same}
+    del ref, ref_sess
+
+    # -- 7. the direction-optimised path -------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph.ensure_csr()
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    csr_peak = torch.cuda.max_memory_allocated()
+    log(f"[7 dir-run] ensure_csr: CSR twin nnz per block "
+        f"{graph.csr['nnz'].flatten().tolist()} in {csr_s:.1f} s; peak "
+        f"memory {csr_peak / 2**30:.2f} GiB, resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    dir_config = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
+                           direction=True, fold_codec="bitmap")
+    dsess = graph.session(dir_config)
+    deng = dsess.engine
+    assert deng.bottomup_path == "kernel" and deng.codec.name == "bitmap"
+
+    bu_tap = Tap(deng.bottomup_fn, lambda k, a: a[0] > 0)
+    pack_tap = Tap(KF.pack_bits, lambda k, a: k == 3)
+    unpack_tap = Tap(KF.unpack_bits, lambda k, a: k == 3)
+
+    class TappedBits:
+        compact_rows = KF.compact_rows
+        pack_bits = pack_tap
+        unpack_bits = unpack_tap
+
+    deng.bottomup_fn = bu_tap
+    deng.fold_ops = deng.codec.ops = TappedBits
+    t0 = time.perf_counter()
+    dsess.bfs(roots[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    deng.bottomup_fn = KB.bottomup_chunk
+    deng.fold_ops = deng.codec.ops = KF
+    log(f"[7 dir-run] warm-up search {warm_s:.2f} s (taps: {bu_tap.calls} "
+        f"bottom-up chunks, {pack_tap.calls} packs, {unpack_tap.calls} "
+        f"unpacks)")
+
+    counted = (K.expand_chunk, KF.compact_rows, KF.pack_bits,
+               KF.unpack_bits, KB.bottomup_chunk)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    dtimes, dteps, dscalar = [], [], []
+    n_bu_levels = 0
+    n_equal = min(TD_EQUAL_ROOTS, len(scalar))
+    for k, r in enumerate(roots):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dsess.bfs(r)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        level, pred = out.level[:n], out.pred[:n]
+        t1 = time.perf_counter()
+        validate_bfs(edges, level, pred, r, index=index)
+        m = count_component_edges(edges, level)
+        val_s = time.perf_counter() - t1
+        dtimes.append(dt)
+        dteps.append(m / dt)
+        dirs = out.directions.cpu()
+        n_bu_levels += int((dirs == 1).sum())
+        if k < n_equal:
+            lv, pr, nl, _ = scalar[k]
+            if not (torch.equal(out.level.cpu(), lv)
+                    and torch.equal(out.pred.cpu(), pr)
+                    and int(out.n_levels) == nl):
+                raise AssertionError(f"direction path root {r} differs from "
+                                     f"the top-down path")
+        if k < max(args.dir_batch, 1):
+            dscalar.append((out.level.cpu(), out.pred.cpu(),
+                            int(out.n_levels), out.edges_scanned, dirs))
+        live = dirs[dirs >= 0].tolist()
+        log(f"[7 dir-run] root {r}: {int(out.n_levels)} levels, directions "
+            f"{''.join('B' if d else 'T' for d in live)}, "
+            f"{out.edges_scanned} edges scanned, component {m} edges, "
+            f"{dt:.3f} s, {m / dt:.4e} TEPS, validated in {val_s:.1f} s")
+    del out, level, pred
+    if n_bu_levels == 0:
+        raise AssertionError("no search ran a bottom-up level")
+    n_dbatch = min(args.dir_batch, len(dscalar))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dbatch = dsess.bfs(roots[:n_dbatch])
+    torch.cuda.synchronize()
+    dbatch_s = time.perf_counter() - t0
+    dlaunches = {fn.__name__: fn.launches for fn in counted}
+    dpeak = torch.cuda.max_memory_allocated()
+    for b, (lv, pr, nl, es, dr) in enumerate(dscalar[:n_dbatch]):
+        if not (torch.equal(dbatch.level[b].cpu(), lv)
+                and torch.equal(dbatch.pred[b].cpu(), pr)
+                and int(dbatch.n_levels[b]) == nl
+                and dbatch.edges_scanned[b] == es
+                and torch.equal(dbatch.directions[b].cpu(), dr)):
+            raise AssertionError(f"direction batched search {b} differs "
+                                 f"from scalar")
+    del dbatch
+    dhm = harmonic_mean(dteps)
+    d_searches = len(roots) + n_dbatch
+    log(f"[7 dir-run] {len(roots)} roots validated (Graph500 rules), first "
+        f"{n_equal} equal to the top-down path; "
+        f"{n_bu_levels} bottom-up levels; batched bfs({n_dbatch} roots) "
+        f"equal to scalar, {dbatch_s:.2f} s")
+    log(f"[7 dir-run] harmonic-mean TEPS {dhm:.6e}; mean search "
+        f"{sum(dtimes) / len(dtimes):.4f} s; peak memory "
+        f"{dpeak / 2**30:.2f} GiB; launches over {d_searches} searches "
+        f"{dlaunches}")
+    for name, cnt in dlaunches.items():
+        if cnt <= 0:
+            raise AssertionError(f"{name} was not launched on the direction "
+                                 f"path")
+    report["dir_run"] = {"csr_s": csr_s, "csr_peak_bytes": csr_peak,
+                         "roots": roots, "search_s": dtimes, "teps": dteps,
+                         "harmonic_teps": dhm, "batch_s": dbatch_s,
+                         "peak_bytes": dpeak, "launches": dlaunches,
+                         "searches": d_searches,
+                         "bottomup_levels": n_bu_levels}
+
+    # -- 7b. B3, B4, B7 on real direction-path calls -------------------------
+    (mask,), _ = pack_tap.saved
+    kern = KF.pack_bits(mask)
+    err = check_equal(torch, "pack_bits on the real fold", (kern,),
+                      (KF.plain_pack_bits(mask),))
+    N, S = mask.shape
+    W = kern.shape[1]
+    p_bytes = N * S + 4 * N * W
+    p_ms = cuda_ms(torch, lambda: KF.pack_bits(mask))
+    p_plain = cuda_ms(torch, lambda: KF.plain_pack_bits(mask), reps=3)
+    kernels.append(kernel_row(
+        "pack_bits", "src/repro_torch/csrc/bits.cu",
+        "src/repro/kernels/fold.py:144", dlaunches["pack_bits"], err, p_ms,
+        p_plain, p_bytes))
+    log(f"[7b parity] pack_bits real fold N={N} S={S} set "
+        f"{int(mask.sum())}: max_abs_err {err}; kernel {p_ms:.4f} ms, plain "
+        f"{p_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
+
+    (uwords, uS), _ = unpack_tap.saved
+    kern = KF.unpack_bits(uwords, uS)
+    err = check_equal(torch, "unpack_bits on the real fold", (kern,),
+                      (KF.plain_unpack_bits(uwords, uS),))
+    N, W = uwords.shape
+    u_bytes = 4 * N * W + N * uS
+    u_ms = cuda_ms(torch, lambda: KF.unpack_bits(uwords, uS))
+    u_plain = cuda_ms(torch, lambda: KF.plain_unpack_bits(uwords, uS),
+                      reps=3)
+    kernels.append(kernel_row(
+        "unpack_bits", "src/repro_torch/csrc/bits.cu",
+        "src/repro/kernels/fold.py:170", dlaunches["unpack_bits"], err, u_ms,
+        u_plain, u_bytes))
+    log(f"[7b parity] unpack_bits real fold N={N} S={uS} set "
+        f"{int(kern.sum())}: max_abs_err {err}; kernel {u_ms:.4f} ms, plain "
+        f"{u_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
+
+    (start, E, *bargs), bkw = bu_tap.saved
+    kern = KB.bottomup_chunk(start, E, *bargs, **bkw)
+    err = check_equal(torch, "bottomup_chunk on the real chunk", kern,
+                      KB.plain_bottomup_chunk(start, E, *bargs, **bkw))
+    bcumul, btotal, _, _, bwords = bargs
+    r_out, c_out, _ = kern
+    live_mask = start + torch.arange(E, device=dev) < btotal
+    live = int(live_mask.sum())
+    block = bkw["block"]
+    if live:
+        rows = int(r_out[live_mask].max()) - int(r_out[live_mask].min()) + 1
+        c_live = c_out[live_mask].long()
+        wid = (c_live // block) * ((block + 31) // 32) + (c_live % block) // 32
+        n_words = int(torch.unique(wid).numel())
+    else:
+        rows = n_words = 0
+    # col_idx + frontier words + the spanned rows' row_off / cumul in,
+    # r / c / hit out
+    b_bytes = 4 * live + 4 * n_words + 8 * rows + 9 * E
+    b_ms = cuda_ms(torch, lambda: KB.bottomup_chunk(start, E, *bargs, **bkw))
+    b_plain = cuda_ms(
+        torch, lambda: KB.plain_bottomup_chunk(start, E, *bargs, **bkw),
+        reps=3)
+    kernels.append(kernel_row(
+        "bottomup_chunk", "src/repro_torch/csrc/bottomup.cu",
+        "src/repro/kernels/bottomup.py:96", dlaunches["bottomup_chunk"], err,
+        b_ms, b_plain, b_bytes))
+    log(f"[7b parity] bottomup_chunk real chunk start={start} E={E} "
+        f"live={live} rows {rows} frontier words {n_words} hits "
+        f"{int(kern[2].sum())}: max_abs_err {err}; kernel {b_ms:.4f} ms, "
+        f"plain {b_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms "
+        f"({b_bytes} B)")
+    del pack_tap, unpack_tap, bu_tap, mask, uwords, bargs, kern, r_out, \
+        c_out, bcumul, btotal, bwords
+
+    # -- 8. direction-path parity: reference path, bottom-up pinned ----------
+    ref_sess = graph.session(BFSConfig(
+        grid=(R, C), edge_chunk=args.edge_chunk, direction=True,
+        fold_codec="bitmap", expand="reference", fold="reference",
+        bottomup="reference"))
+    reng = ref_sess.engine
+    assert reng.expand_fn is None and reng.fold_ops is None \
+        and reng.bottomup_fn is None and reng.codec.ops is None
+    t0 = time.perf_counter()
+    ref = ref_sess.bfs(roots[0])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    lv, pr, nl, es, dr = dscalar[0]
+    same = (torch.equal(ref.level.cpu(), lv)
+            and torch.equal(ref.pred.cpu(), pr)
+            and int(ref.n_levels) == nl and ref.edges_scanned == es
+            and torch.equal(ref.directions.cpu(), dr))
+    log(f"[8 dir-path] expand, fold, bottomup = 'reference' root "
+        f"{roots[0]}: {ref_s:.2f} s, equal to the kernel path: {same}")
+    if not same:
+        raise AssertionError("the direction path's plain version differs "
+                             "from its kernel path")
+    del ref, ref_sess
+    bu_sess = graph.session(BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
+                                      direction="bottomup",
+                                      fold_codec="bitmap"))
+    t0 = time.perf_counter()
+    bu = bu_sess.bfs(roots[0])
+    torch.cuda.synchronize()
+    bu_s = time.perf_counter() - t0
+    lv, pr, nl, _ = scalar[0]
+    dirs = bu.directions.cpu()
+    bu_same = (torch.equal(bu.level.cpu(), lv)
+               and torch.equal(bu.pred.cpu(), pr) and int(bu.n_levels) == nl
+               and bool((dirs[dirs >= 0] == 1).all()))
+    log(f"[8 dir-path] direction='bottomup' root {roots[0]}: {bu_s:.2f} s, "
+        f"{bu.edges_scanned} edges scanned, levels and preds equal to "
+        f"top-down: {bu_same}")
+    if not bu_same:
+        raise AssertionError("direction='bottomup' differs from top-down")
+    report["dir_path_parity"] = {"root": roots[0], "reference_s": ref_s,
+                                 "bottomup_s": bu_s,
+                                 "bottomup_edges": bu.edges_scanned}
+    del bu, bu_sess
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - t_script
 
     # -- 6. report ------------------------------------------------------------
     if args.out:
@@ -407,6 +713,7 @@ def main() -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
+    log(f"[6 report] whole script {report['script_s']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,13 +2,15 @@
 """Where one search of the PyTorch port spends its time on an NVIDIA GPU.
 
     python3 scripts/torch_bfs_profile.py [--scale 26] [--grid 2x2]
-        [--edge-chunk 4194304] [--seed 1] [--out FILE.json]
+        [--edge-chunk 4194304] [--seed 1] [--direction] [--out FILE.json]
 
 Generates the R-MAT graph on the card (as chip_smoke.py does), plans it,
 runs one warm-up search, then one search under torch.profiler with CUDA
-activity.  Prints the search's wall time, the device-busy time (sum of the
-kernels' device time) and the idle share, and the ops with the most device
-time: what bounds the search today, in order.
+activity.  --direction profiles the direction-optimised path
+(`BFSConfig(direction=True, fold_codec="bitmap")`, CSR twin planned first)
+instead of the top-down one.  Prints the search's wall time, the
+device-busy time (sum of the kernels' device time) and the idle share, and
+the ops with the most device time: what bounds the search today, in order.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ def main() -> int:
     ap.add_argument("--edge-chunk", type=int, default=1 << 22)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--direction", action="store_true",
+                    help="profile direction=True with the bitmap codec")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -54,8 +58,11 @@ def main() -> int:
     edges = rmat_edges(args.scale, args.edge_factor,
                        torch.Generator(device=dev).manual_seed(args.seed),
                        dev)
+    knobs = dict(direction=True, fold_codec="bitmap") if args.direction \
+        else {}
     graph = DistGraph.from_edges(
-        edges, BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk), n=n)
+        edges, BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk, **knobs),
+        n=n)
     deg = torch.bincount(edges[0].long(), minlength=n)
     root = int(torch.nonzero(deg > 0)[0])
     del deg
@@ -82,8 +89,11 @@ def main() -> int:
             if ev.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
+    directions = None if out.directions is None \
+        else "".join("TB"[d] for d in out.directions.tolist() if d >= 0)
     report = {"device": smi, "scale": args.scale, "grid": [R, C],
               "edge_chunk": args.edge_chunk, "root": root,
+              "config": knobs, "directions": directions,
               "levels": int(out.n_levels),
               "edges_scanned": out.edges_scanned,
               "search_s": plain_s, "profiled_search_s": prof_s,
@@ -92,8 +102,8 @@ def main() -> int:
               "top": rows[:args.top]}
     print(f"device: {smi}")
     print(f"SCALE {args.scale} grid {R}x{C} edge_chunk {args.edge_chunk} "
-          f"root {root}: {report['levels']} levels, {out.edges_scanned} "
-          f"edges scanned")
+          f"root {root} {knobs}: {report['levels']} levels, "
+          f"{out.edges_scanned} edges scanned, directions {directions}")
     print(f"search {plain_s:.4f} s unprofiled, {prof_s:.4f} s profiled; "
           f"device busy {busy_ms:.1f} ms; idle share "
           f"{report['idle_share']:.4f}")

@@ -149,10 +149,18 @@ class BFSLevelsProgram(FrontierProgram):
     def plan(self, engine, graph, st):
         return plan_level(engine, graph, st)
 
-    def make_step(self, engine, graph):
-        def step(st, plan, block_edges):
-            return topdown_step(engine, graph, st, plan, block_edges)
+    def make_step(self, engine, graph, extra=()):
+        def step(st, plan, counts):
+            return (topdown_step(engine, graph, st, plan, counts[1:]),
+                    sum(counts[1:]))
         return step
+
+    def make_bottomup_step(self, engine, graph, extra):
+        from repro_torch.algos.direction import make_bfs_bottomup_step
+        return make_bfs_bottomup_step(engine, graph, extra)
+
+    def front_count(self, st):
+        return st.front_cnt
 
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.lvl <= engine.max_levels

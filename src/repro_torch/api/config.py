@@ -22,16 +22,21 @@ class BFSConfig:
 
     grid:        Grid2D | (R, C) | "RxC" | None (None = 1 x 1: the port
                  stacks the grid on one device).
-    fold_codec:  "list" (bitmap / delta: ROADMAP A6).
+    fold_codec:  "list" | "bitmap" | a FoldCodec (delta: ROADMAP A8).
     edge_chunk:  CSC scan chunk size of the expand phase.  Results do not
                  depend on it; on a card a large chunk (2^22) amortises the
                  per-chunk claim array of the scatter dedup.
     dedup:       winner-selection method ("scatter" | "sort").
     max_levels:  level-loop bound.
     expand:      "auto" | "kernel" | "reference" for the chunk scan.
-    fold:        "auto" | "kernel" | "reference" for the compaction.
+    fold:        "auto" | "kernel" | "reference" for the compaction and
+                 the bitmap codec's bit packing.
     exchange:    "flat" (butterfly / auto: ROADMAP A9).
-    direction, alpha, beta, bottomup: direction optimisation (ROADMAP A7);
+    direction:   False | None (top-down) | True | "adaptive" | "bottomup";
+                 needs the CSR twin, planned on the first such session.
+    alpha, beta: enter bottom-up above n / alpha frontier vertices, leave
+                 it below n / beta.
+    bottomup:    "auto" | "kernel" | "reference" for the bottom-up scan.
     telemetry: ROADMAP A10; fault_tolerance, ckpt_every: ROADMAP A11;
     expand_fn: a custom chunk hook (ROADMAP A17); row_axes / col_axes name
     mesh axes, which the stacked grid does not use.
@@ -60,11 +65,11 @@ class BFSConfig:
             v = getattr(self, f)
             if v is not None and not isinstance(v, tuple):
                 object.__setattr__(self, f, tuple(v))
+        self.direction_mode             # raises on a bad spelling
         unsupported = (
-            ("direction", self.direction not in (False, None), "A7"),
             ("telemetry", bool(self.telemetry), "A10"),
             ("fault_tolerance", bool(self.fault_tolerance), "A11"),
-            ("fold_codec", self.fold_codec != "list", "A6"),
+            ("fold_codec", self.fold_codec == "delta", "A8"),
             ("exchange", self.exchange != "flat", "A9"),
             ("expand_fn", self.expand_fn is not None, "A17"),
         )
@@ -85,10 +90,27 @@ class BFSConfig:
                              f"{self.edge_chunk}")
 
     @property
+    def direction_mode(self):
+        """The direction spelling normalised: None (pure top-down),
+        "adaptive" or "bottomup"."""
+        d = self.direction
+        if d is False or d is None:
+            return None
+        if d is True:
+            return "adaptive"
+        if d in ("adaptive", "bottomup"):
+            return d
+        raise ValueError(
+            f"direction={d!r}: expected False | True | 'adaptive' | "
+            f"'bottomup'")
+
+    @property
     def engine_key(self) -> tuple:
-        """What makes two configs share one engine."""
-        return (self.fold_codec, self.edge_chunk, self.dedup,
-                self.max_levels, self.expand, self.fold, self.exchange)
+        """What makes two configs share one engine: every knob that changes
+        the engine."""
+        return (self.fold_codec, self.direction_mode, self.edge_chunk,
+                self.dedup, self.max_levels, self.alpha, self.beta,
+                self.expand, self.fold, self.bottomup, self.exchange)
 
     def resolve_grid(self, n: int) -> Grid2D:
         """Concretise the `grid` spelling against n vertices (padding up)."""

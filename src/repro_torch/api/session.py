@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.algos.bfs import BFSLevelsProgram
+from repro_torch.algos.direction import DirectionProgram
 from repro_torch.algos.engine import FrontierEngine
 from repro_torch.api.config import BFSConfig
-from repro_torch.core.partition import partition_2d
+from repro_torch.core.partition import partition_2d, partition_2d_csr
 from repro_torch.core.types import BFSOutput, Grid2D, LocalGraph2D, \
     resolve_device
 from repro_torch.core.validate import EdgeIndex, validate_bfs
@@ -55,17 +56,21 @@ def _edge_tensor(edges, device) -> torch.Tensor:
 class DistGraph:
     """A resident, partitioned graph on one device: plan once, query many.
 
-    Holds the stacked CSC blocks, the topology, the engines every session
-    over this graph shares and, for `bfs(validate=True)`, the edge list and
-    its `EdgeIndex` (built on the first validated query)."""
+    Holds the stacked CSC blocks, the CSR twin once a direction-enabled
+    session needs it, the topology, the engines every session over this
+    graph shares and, for `bfs(validate=True)` and the CSR build, the edge
+    list and its `EdgeIndex` (built on the first validated query).  Unlike
+    the JAX package, the edge list stays after the CSR exists: validation
+    needs it."""
 
     def __init__(self, topology: StackedTopology, csc: LocalGraph2D, *,
-                 edges=None, n: int | None = None,
+                 csr: dict | None = None, edges=None, n: int | None = None,
                  config: BFSConfig = None):
         self.topology = topology
         self.grid = topology.grid
         self.device = topology.device
         self.csc = csc
+        self.csr = csr
         self.n = int(n) if n is not None else topology.grid.n
         self.config = config if config is not None else BFSConfig()
         self.edges = edges
@@ -79,7 +84,8 @@ class DistGraph:
 
         edges: (2, E) [src, dst] numpy array or torch tensor.  device: None
         = CUDA (raises without a card).  n defaults to max vertex id + 1;
-        the grid pads it up to a multiple of R*C."""
+        the grid pads it up to a multiple of R*C.  The CSR twin is planned
+        lazily, on the first direction-enabled session (`ensure_csr`)."""
         config = config if config is not None else BFSConfig()
         device = resolve_device(device)
         edges = _edge_tensor(edges, device)
@@ -93,10 +99,12 @@ class DistGraph:
     @classmethod
     def from_partition(cls, grid: Grid2D, csc: LocalGraph2D,
                        config: BFSConfig = None, *, n: int | None = None,
-                       edges=None) -> "DistGraph":
+                       edges=None, csr: dict | None = None) -> "DistGraph":
         """A graph whose partition is already built (for example from the
-        JAX package's `partition_2d` through `repro_torch.convert`).  The
-        device is the partition's; `edges` enables `bfs(validate=True)`."""
+        JAX package's `partition_2d` / `partition_2d_csr` through
+        `repro_torch.convert`).  The device is the partition's; `edges`
+        enables `bfs(validate=True)` and a lazy CSR build, `csr` supplies
+        the CSR twin directly."""
         config = config if config is not None else BFSConfig()
         if config.grid is not None and config.resolve_grid(
                 n if n is not None else grid.n) != grid:
@@ -105,19 +113,37 @@ class DistGraph:
         device = csc.col_off.device
         if edges is not None:
             edges = _edge_tensor(edges, device)
-        return cls(StackedTopology(grid, device), csc, edges=edges, n=n,
-                   config=config)
+        return cls(StackedTopology(grid, device), csc, csr=csr,
+                   edges=edges, n=n, config=config)
+
+    def ensure_csr(self) -> dict:
+        """Plan the CSR twin on demand (the first direction-enabled
+        session), block by block from the resident edge list."""
+        if self.csr is None:
+            if self.edges is None:
+                raise ValueError(
+                    "direction optimisation needs the CSR twin, but this "
+                    "DistGraph has no edge list; pass csr= or edges= to "
+                    "from_partition, or use from_edges")
+            self.csr = partition_2d_csr(self.edges, self.grid)
+        return self.csr
 
     def engine_for(self, config: BFSConfig) -> FrontierEngine:
         key = config.engine_key
         eng = self._engines.get(key)
         if eng is None:
+            program = BFSLevelsProgram()
+            if config.direction_mode is not None:
+                program = DirectionProgram(program,
+                                           mode=config.direction_mode,
+                                           alpha=config.alpha,
+                                           beta=config.beta)
             eng = FrontierEngine(
-                self.topology, BFSLevelsProgram(),
+                self.topology, program,
                 fold_codec=config.fold_codec, edge_chunk=config.edge_chunk,
                 max_levels=config.max_levels, expand=config.expand,
                 fold=config.fold, dedup=config.dedup,
-                exchange=config.exchange)
+                bottomup=config.bottomup, exchange=config.exchange)
             self._engines[key] = eng
         return eng
 
@@ -150,6 +176,10 @@ class GraphSession:
                     f"session config asks for a {want.R}x{want.C} grid but "
                     f"the resident graph is planned {graph.grid.R}x"
                     f"{graph.grid.C}; re-plan with DistGraph.from_edges")
+        self.extra = ()
+        if self.config.direction_mode is not None:
+            csr = graph.ensure_csr()
+            self.extra = (csr["row_off"], csr["col_idx"])
         self.engine = graph.engine_for(self.config)
 
     def bfs(self, roots, validate=False) -> BFSOutput:
@@ -158,7 +188,10 @@ class GraphSession:
         Scalar: global (n,) level/pred (plain global vertex ids, padded to
         the grid), () n_levels, exact int edges_scanned.  Batch: (B, n)
         level/pred, (B,) n_levels, tuple of B edges_scanned -- equal to
-        running the roots one by one.  validate=True runs the Graph500 rules
+        running the roots one by one.  A direction-enabled session also
+        returns `directions`, the per-level trace ((max_levels,) or
+        (B, max_levels) int32: -1 unused, 0 top-down, 1 bottom-up).
+        validate=True runs the Graph500 rules
         (`core.validate.validate_bfs`) on every root's output against the
         graph's edge list and raises AssertionError on any violation."""
         check_vertex_ids(roots, self.graph.n, "roots")
@@ -168,10 +201,11 @@ class GraphSession:
             raise ValueError(f"roots must be a scalar or 1D batch, got "
                              f"shape {roots_np.shape}")
         if roots_np.ndim == 0:
-            out = self.engine.run(self.graph.csc, int(roots_np))
+            out = self.engine.run(self.graph.csc, int(roots_np), self.extra)
             levels, preds = [out.level], [out.pred]
         else:
-            out = self.engine.run_batch(self.graph.csc, roots_np.tolist())
+            out = self.engine.run_batch(self.graph.csc, roots_np.tolist(),
+                                        self.extra)
             levels, preds = list(out.level), list(out.pred)
         if validate:
             n = self.graph.n

@@ -2,7 +2,8 @@
 
 `graph_from_partition` takes the arrays of `repro.core.partition.
 partition_2d` (numpy, leading (R, C) dims) and builds the port's
-`LocalGraph2D` on a device, so both packages can search the very same
+`LocalGraph2D` on a device, and `csr_from_partition` does the same for the
+CSR twin of `partition_2d_csr`, so both packages can search the very same
 partition.  BFS has no weights: the partitioned graph plays that role.
 """
 from __future__ import annotations
@@ -29,3 +30,20 @@ def graph_from_partition(grid: Grid2D, col_off, row_idx, nnz,
             f"partition shapes {[tuple(t.shape) for t in out.values()]} do "
             f"not fit grid {R}x{C} with {ncl} local columns")
     return LocalGraph2D(**out)
+
+
+def csr_from_partition(grid: Grid2D, row_off, col_idx, nnz, device) -> dict:
+    """(R, C, nrl + 1), (R, C, e_max), (R, C) int32 arrays -> the port's
+    CSR twin dict on `device`, shapes checked against `grid`."""
+    arrays = {"row_off": row_off, "col_idx": col_idx, "nnz": nnz}
+    out = {k: torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+           for k, a in arrays.items()}
+    R, C, nrl = grid.R, grid.C, grid.n_rows_local
+    if (out["row_off"].shape != (R, C, nrl + 1)
+            or out["col_idx"].dim() != 3
+            or out["col_idx"].shape[:2] != (R, C)
+            or out["nnz"].shape != (R, C)):
+        raise ValueError(
+            f"CSR shapes {[tuple(t.shape) for t in out.values()]} do not "
+            f"fit grid {R}x{C} with {nrl} local rows")
+    return out

@@ -2,8 +2,9 @@
 port of `repro/core/frontier.py`.
 
 The formulas are the JAX package's plain (reference) path, op for op; the
-kernels of `repro_torch.kernels` replace the hot chunk op and the
-compaction on a card.  Three differences from JAX are deliberate:
+kernels of `repro_torch.kernels` replace the hot chunk ops (top-down and
+bottom-up) and the compaction on a card.  Three differences from JAX are
+deliberate:
 
   * masked scatters: JAX drops them with `mode="drop"` on the index
     `n_rows`; torch rejects that index, so per-vertex state carries a
@@ -60,6 +61,24 @@ def compact_blocks(vals, cnts, fill=-1, ops=None):
     order = torch.argsort((~flat_m).to(torch.int8), stable=True)
     out = torch.where(flat_m[order], flat_v[order], _i32(fill, vals))
     return out, total
+
+
+def compact_offsets(mask, ops=None):
+    """(N, S) bool -> (N, S) int32 offsets t of each row's set entries,
+    ascending and front-packed, padded -1, and the (N,) int32 counts.
+
+    ops: the fold-kernel bundle whose `compact_rows` front-packs the offsets;
+    None = a stable argsort of ~mask, whose order IS the offsets.  Both are
+    bit-identical."""
+    N, S = mask.shape
+    if ops is not None:
+        t = torch.arange(S, dtype=torch.int32, device=mask.device)
+        (ts,), cnt = ops.compact_rows(mask, (t.expand(N, S).contiguous(),),
+                                      (-1,))
+        return ts, cnt
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+    ts = torch.where(torch.gather(mask, 1, order), order.to(torch.int32), -1)
+    return ts, mask.sum(dim=1, dtype=torch.int32)
 
 
 def winner_dedup(v, eligible, n_rows: int, method: str = "scatter"):
@@ -189,6 +208,40 @@ def reference_expand_chunk(gids, cumul, all_front, front_total, col_off,
     valid = gids < cumul[front_total]
     v = torch.where(valid, row_idx[addr], 0).to(torch.int32)
     return v, u, k, addr, valid
+
+
+def test_bit_blocks(words, c, block: int):
+    """Test bit `c` of a row-gathered blocked bitmap.
+
+    words: (R * W,) int32, R per-processor blocks of W = ceil(block/32)
+    words, each packing `block` bits (`pack_bitmap` of one owned frontier
+    mask).  Local col c lives in block c // block at bit c % block, so the
+    layout stays exact when block % 32 != 0."""
+    W = (block + 31) // 32
+    blk, off = c // block, c % block
+    w = words[(blk * W + (off >> 5)).long()]
+    return ((w >> (off & 31)) & 1) != 0
+
+
+def reference_bottomup_chunk(gids, cumul, total, row_off, col_idx, words, *,
+                             block: int):
+    """One chunk of the bottom-up parent search in plain torch -- the JAX
+    package's reference formulas (`searchsorted` on the unclipped masked
+    cumsum).
+
+    cumul: (nrl + 1,) exclusive cumsum of the per-row degrees with visited
+    rows zeroed; total: () int32 live edge count.  Returns (r, c, hit):
+    candidate local row, its neighbour's local col (masked lanes -> 0), and
+    whether that neighbour is in the frontier."""
+    nrl = cumul.shape[0] - 1
+    nnz_cap = col_idx.shape[0]
+    r = torch.searchsorted(cumul, gids, right=True, out_int32=True) - 1
+    r = r.clamp(0, nrl - 1)
+    addr = (row_off[r] + gids - cumul[r]).clamp(0, nnz_cap - 1)
+    valid = gids < total
+    c = torch.where(valid, col_idx[addr], 0).to(torch.int32)
+    hit = valid & test_bit_blocks(words, c, block)
+    return r, c, hit
 
 
 def scan_plan(col_off, all_front, front_total):

@@ -3,9 +3,11 @@
 The JAX package partitions on the host with one global `np.lexsort` over
 int64 keys.  At Graph500 scale 26 that is 2^31 keys; here every processor
 block is built on its own instead -- mask the edges it owns, in input order,
-then stable-sort them by local column -- so the temporaries are one block's
-worth.  The result equals the JAX `partition_2d` exactly: the same stable
-(block, column) order, so the same `col_off`, `row_idx` order and `nnz`.
+then stable-sort them by local column (by local row for the CSR twin), in
+column ranges of at most SORT_PIECE edges -- so the temporaries are a
+fraction of one block's worth.  The result equals the JAX `partition_2d` /
+`partition_2d_csr` exactly: the same stable (block, column) or (block, row)
+order, so the same offsets, indices and `nnz`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from repro_torch.core.types import Grid2D, LocalGraph2D
 # edges handled per elementwise pass: bounds the int32/bool temporaries of a
 # pass to a few hundred MB whatever the edge count
 EDGE_PIECE = 1 << 26
+# entries per stable sort: a sort of n int32 keys holds about 22 n bytes of
+# outputs and scratch, so a block of 2^29 edges is sorted in key ranges
+SORT_PIECE = 1 << 27
 
 
 # ----------------------------------------------------------------------------
@@ -73,6 +78,58 @@ def _block_of(u, v, grid: Grid2D):
     return pi * grid.C + pj
 
 
+def _block_counts(edges: torch.Tensor, grid: Grid2D,
+                  pad_to: int | None):
+    """Every block's edge count (row-major p = i*C + j) and the padded
+    width e_max; raises if `pad_to` is below a block's count."""
+    counts = torch.zeros(grid.P, dtype=torch.int64, device=edges.device)
+    for u, v in _pieces(edges):
+        counts += torch.bincount(_block_of(u, v, grid), minlength=grid.P)
+    counts = counts.tolist()
+    e_max = pad_to if pad_to is not None else max(counts)
+    for p, cnt in enumerate(counts):
+        if cnt > e_max:
+            raise ValueError(
+                f"pad_to={e_max} < local nnz {cnt} at "
+                f"P({p // grid.C},{p % grid.C})")
+    return counts, e_max
+
+
+def _block_edges(edges: torch.Tensor, grid: Grid2D, p: int):
+    """Block p's edges in input order as (local col, local row) int32."""
+    lc_parts, lr_parts = [], []
+    for u, v in _pieces(edges):
+        mine = _block_of(u, v, grid) == p
+        lc_parts.append(local_col(u[mine], grid))
+        lr_parts.append(local_row(v[mine], grid))
+    return torch.cat(lc_parts), torch.cat(lr_parts)
+
+
+def _fill_sorted(out, key, vals, off):
+    """out[:n] = vals stably sorted by key, in key ranges of at most about
+    SORT_PIECE entries (a range holds whole keys, so the order equals one
+    stable sort of everything).  off: (n_keys + 1,) int32 exclusive cumsum
+    of the key counts."""
+    n_keys = off.shape[0] - 1
+    count = key.shape[0]
+    n_pieces = max(1, -(-count // SORT_PIECE))
+    targets = torch.arange(1, n_pieces, dtype=torch.int32,
+                           device=key.device) * (count // n_pieces)
+    cuts = torch.searchsorted(off[1:], targets, right=True)
+    bounds = [0] + cuts.tolist() + [n_keys]
+    starts = off[bounds].tolist()
+    for a, b, ea, eb in zip(bounds, bounds[1:], starts, starts[1:]):
+        if eb == ea:
+            continue
+        if n_pieces == 1:
+            ks, vs = key, vals
+        else:
+            sel = (key >= a) & (key < b)
+            ks, vs = key[sel], vals[sel]
+            del sel
+        out[ea:eb] = vs[torch.sort(ks, stable=True).indices]
+
+
 def partition_2d(edges: torch.Tensor, grid: Grid2D,
                  pad_to: int | None = None) -> LocalGraph2D:
     """Split a directed (2, E) int32 edge list [src u, dst v] among the grid.
@@ -85,35 +142,45 @@ def partition_2d(edges: torch.Tensor, grid: Grid2D,
     ncl = grid.n_cols_local
     dev = edges.device
     edges = edges.to(torch.int32)
-
-    counts = torch.zeros(R * C, dtype=torch.int64, device=dev)
-    for u, v in _pieces(edges):
-        counts += torch.bincount(_block_of(u, v, grid), minlength=R * C)
-    counts = counts.tolist()
-    e_max = pad_to if pad_to is not None else max(counts)
-    for p, cnt in enumerate(counts):
-        if cnt > e_max:
-            raise ValueError(
-                f"pad_to={e_max} < local nnz {cnt} at P({p // C},{p % C})")
-
+    counts, e_max = _block_counts(edges, grid, pad_to)
     col_off = torch.zeros((R, C, ncl + 1), dtype=torch.int32, device=dev)
     row_idx = torch.full((R, C, e_max), -1, dtype=torch.int32, device=dev)
     for i in range(R):
         for j in range(C):
             p = i * C + j
-            lc_parts, lr_parts = [], []
-            for u, v in _pieces(edges):
-                mine = _block_of(u, v, grid) == p
-                lc_parts.append(local_col(u[mine], grid))
-                lr_parts.append(local_row(v[mine], grid))
-            lc = torch.cat(lc_parts)
-            lr = torch.cat(lr_parts)
-            del lc_parts, lr_parts
-            deg = torch.bincount(lc, minlength=ncl)
-            col_off[i, j, 1:] = torch.cumsum(deg, 0)
-            lc_sorted, order = torch.sort(lc, stable=True)
-            del lc, lc_sorted
-            row_idx[i, j, :counts[p]] = lr[order]
-            del lr, order
+            lc, lr = _block_edges(edges, grid, p)
+            col_off[i, j, 1:] = torch.cumsum(
+                torch.bincount(lc, minlength=ncl), 0)
+            _fill_sorted(row_idx[i, j], lc, lr, col_off[i, j])
+            del lc, lr
     nnz = torch.tensor(counts, dtype=torch.int32, device=dev).reshape(R, C)
     return LocalGraph2D(col_off=col_off, row_idx=row_idx, nnz=nnz)
+
+
+def partition_2d_csr(edges: torch.Tensor, grid: Grid2D,
+                     pad_to: int | None = None) -> dict:
+    """Row-major (CSR) twin of `partition_2d` for the bottom-up direction.
+
+    Built block by block like the CSC: the block's edges in input order,
+    stable-sorted by local row, so within a row `col_idx` keeps the input
+    order -- the JAX `np.lexsort((lr, dev))` order exactly.  Returns
+    dict(row_off=(R, C, N/R + 1), col_idx=(R, C, e_max) LOCAL columns
+    padded -1, nnz=(R, C)), int32.
+    """
+    R, C = grid.R, grid.C
+    nrl = grid.n_rows_local
+    dev = edges.device
+    edges = edges.to(torch.int32)
+    counts, e_max = _block_counts(edges, grid, pad_to)
+    row_off = torch.zeros((R, C, nrl + 1), dtype=torch.int32, device=dev)
+    col_idx = torch.full((R, C, e_max), -1, dtype=torch.int32, device=dev)
+    for i in range(R):
+        for j in range(C):
+            p = i * C + j
+            lc, lr = _block_edges(edges, grid, p)
+            row_off[i, j, 1:] = torch.cumsum(
+                torch.bincount(lr, minlength=nrl), 0)
+            _fill_sorted(col_idx[i, j], lr, lc, row_off[i, j])
+            del lc, lr
+    nnz = torch.tensor(counts, dtype=torch.int32, device=dev).reshape(R, C)
+    return dict(row_off=row_off, col_idx=col_idx, nnz=nnz)

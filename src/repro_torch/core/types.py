@@ -108,3 +108,8 @@ class BFSOutput:
     pred: torch.Tensor       # (n,) int32 global parent ids, or (B, n)
     n_levels: torch.Tensor   # () int32, or (B,)
     edges_scanned: object = None  # exact Python int, or a tuple of B ints
+    directions: object = None     # (max_levels,) int32 per-level direction
+                                  #   trace (-1 unused / 0 top-down / 1
+                                  #   bottom-up), (B, max_levels) for a
+                                  #   batch; None without direction
+                                  #   optimisation

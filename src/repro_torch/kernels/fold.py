@@ -1,19 +1,26 @@
-"""Prefix-sum row compaction (DESIGN.md sec. 10), the port of
-`repro/kernels/fold.py:compact_rows`.
+"""The fold-path kernels (DESIGN.md sec. 10), the port of
+`repro/kernels/fold.py`: prefix-sum row compaction and the bitmap codec's
+bit packing.
 
 `compact_rows` front-packs each row's masked entries, in order, and pads
 with per-channel fills: the argsort replacement `core.frontier.
 compact_blocks` takes on the main path (`dist.exchange.expand_exchange`,
-every level).  For CUDA tensors it computes the count prefix with
-torch.cumsum and launches `csrc/compact.cu` once per channel; for CPU
-tensors it runs `plain_compact_rows`, a stable argsort of ~mask.  Both are
-bit-identical: the output is fully determined by the mask.
+every level).  For CUDA tensors it computes the count prefix with one flat
+torch.cumsum (`row_prefix`) and launches `csrc/compact.cu` once per
+channel; for CPU tensors it runs `plain_compact_rows`, a stable argsort of
+~mask.  Both are bit-identical: the output is fully determined by the
+mask.
+
+`pack_bits` / `unpack_bits` turn (N, S) bool rows into (N, ceil(S/32))
+int32 words holding the JAX uint32 bit pattern and back: `BitmapFold`'s
+encode and decode on every fold.  CUDA tensors launch `csrc/bits.cu`; CPU
+tensors run `plain_pack_bits` / `plain_unpack_bits`
+(`core.frontier.pack_bitmap` / `unpack_bitmap`).
 
 The module itself is the engines' fold-kernel bundle (`ops`): call sites
-write `ops.compact_rows(...)`, and `ops=None` means the plain formulas.
-Only `compact_rows` is ported so far; the bitmap and delta codec kernels
-(`pack_bits`, `unpack_bits`, `delta_gaps`, `delta_positions`) come with
-those codecs (ROADMAP A6).
+write `ops.compact_rows(...)`, `ops.pack_bits(...)`, and `ops=None` means
+the plain formulas.  The delta codec's kernels (`delta_gaps`,
+`delta_positions`) come with that codec (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import frontier as F
 from repro_torch.kernels import build
 from repro_torch.kernels.select import launches_kernel
 
@@ -35,6 +43,21 @@ def plain_compact_rows(mask, arrays, fills):
                                  device=mask.device))
         for a, f in zip(arrays, fills))
     return packed, mask.sum(dim=1, dtype=torch.int32)
+
+
+def row_prefix(mask):
+    """(N, S) bool -> (N, S) int32 inclusive count prefix of each row.
+
+    One scan over the flattened mask, then each row's base subtracted:
+    torch's scan along the last dim of a 2D tensor works a row per thread
+    block, so a few rows of 2^24 slots leave most of the card idle, while
+    the flat scan spreads over all of it."""
+    N, S = mask.shape
+    inc = torch.cumsum(mask.reshape(-1), 0, dtype=torch.int32).view(N, S)
+    if N > 1:
+        base = inc[:-1, -1].clone()
+        inc[1:] -= base[:, None]
+    return inc
 
 
 def _launcher():
@@ -82,7 +105,7 @@ def compact_rows(mask, arrays, fills):
         empty = tuple(torch.empty((N, 0), dtype=torch.int32, device=dev)
                       for _ in arrays)
         return empty, torch.zeros(N, dtype=torch.int32, device=dev)
-    inc = torch.cumsum(mask, dim=1, dtype=torch.int32)
+    inc = row_prefix(mask)
     fn = _launcher()
     packed = []
     with torch.cuda.device(dev):
@@ -98,3 +121,82 @@ def compact_rows(mask, arrays, fills):
 
 
 compact_rows.launches = 0
+
+
+def plain_pack_bits(mask):
+    """(N, S) bool -> (N, ceil(S/32)) int32 words in plain torch."""
+    return F.pack_bitmap(mask)
+
+
+def plain_unpack_bits(words, S: int):
+    """(N, W) int32 words -> (N, S) bool in plain torch."""
+    return F.unpack_bitmap(words, S)
+
+
+def _bits_launcher(name):
+    fn = getattr(build.library("bits"), f"{name}_launch")
+    if fn.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = ([p, p, i64, i64, p] if name == "pack_bits"
+                       else [p, p, i64, i64, i64, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_bits(mask):
+    """(N, S) bool -> (N, ceil(S/32)) int32 little-endian words, pad bits 0.
+    The input is checked on every device; then CUDA tensors launch the
+    kernel (counted in `pack_bits.launches`) and CPU tensors run the plain
+    version."""
+    if mask.dim() != 2 or mask.dtype != torch.bool \
+            or not mask.is_contiguous():
+        raise ValueError(f"pack_bits: mask must be a contiguous (N, S) bool "
+                         f"tensor, got {mask.dtype} {tuple(mask.shape)}")
+    if not launches_kernel(mask, "pack_bits"):
+        return plain_pack_bits(mask)
+    N, S = mask.shape
+    if N > 65535:
+        raise ValueError(f"pack_bits: {N} rows exceed the grid's 65535")
+    words = torch.empty((N, (S + 31) // 32), dtype=torch.int32,
+                        device=mask.device)
+    if words.numel() == 0:
+        return words
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        rc = _bits_launcher("pack_bits")(mask.data_ptr(), words.data_ptr(),
+                                         N, S, stream)
+    build.check(rc, "pack_bits")
+    pack_bits.launches += 1
+    return words
+
+
+pack_bits.launches = 0
+
+
+def unpack_bits(words, S: int):
+    """(N, W) int32 words -> (N, S) bool, W * 32 >= S.  The input is checked
+    on every device; then CUDA tensors launch the kernel (counted in
+    `unpack_bits.launches`) and CPU tensors run the plain version."""
+    if words.dim() != 2 or words.dtype != torch.int32 \
+            or not words.is_contiguous() or words.shape[1] * 32 < S:
+        raise ValueError(f"unpack_bits: words must be a contiguous (N, W) "
+                         f"int32 tensor with 32 W >= S={S}, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    if not launches_kernel(words, "unpack_bits"):
+        return plain_unpack_bits(words, S)
+    N, W = words.shape
+    if N > 65535:
+        raise ValueError(f"unpack_bits: {N} rows exceed the grid's 65535")
+    bits = torch.empty((N, S), dtype=torch.bool, device=words.device)
+    if bits.numel() == 0:
+        return bits
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        rc = _bits_launcher("unpack_bits")(words.data_ptr(), bits.data_ptr(),
+                                           N, S, W, stream)
+    build.check(rc, "unpack_bits")
+    unpack_bits.launches += 1
+    return bits
+
+
+unpack_bits.launches = 0

@@ -1,18 +1,29 @@
 """JAX-side reference searches for the port's parity tests
-(tests/test_torch_bfs.py), on forced host devices.
+(tests/test_torch_bfs.py, tests/test_torch_direction.py), on forced host
+devices.
 
 Runs `DistGraph.from_edges(edges, BFSConfig(grid=(R, C))).session().bfs`
 of the JAX package for every requested grid: one scalar search from the
 first root and one batched search over all roots, and writes levels, preds,
-n_levels and edges_scanned to an .npz.
+n_levels and edges_scanned to an .npz under keys "{RxC}_{scalar|batch}_*".
 
-Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...]   (GRID = RxC)
-EDGES.npz holds `edges` (2, E), `roots` (B,) and `n`.
+With --direction it also runs, per grid, one batched search over all roots
+for each of DIRECTION_CONFIGS (direction x fold codec), under keys
+"{RxC}_{direction}_{codec}_batch_*", with the `directions` trace.  The
+batched search equals the scalar one root by root (the JAX package's own
+contract), so a scalar port search is held to its batch row.
+
+Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
+(GRID = RxC).  EDGES.npz holds `edges` (2, E), `roots` (B,) and `n`.
 """
 import os
 import sys
 
-GRIDS = [tuple(int(x) for x in g.split("x")) for g in sys.argv[3:]]
+ARGS = [a for a in sys.argv[3:] if a != "--direction"]
+DIRECTION = "--direction" in sys.argv[3:]
+DIRECTION_CONFIGS = [(False, "bitmap"), (True, "list"), (True, "bitmap"),
+                     ("bottomup", "list"), ("bottomup", "bitmap")]
+GRIDS = [tuple(int(x) for x in g.split("x")) for g in ARGS]
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
                            f"{max(r * c for r, c in GRIDS)}")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "..", "src"))
@@ -23,23 +34,36 @@ import numpy as np  # noqa: E402
 from repro.api import BFSConfig, DistGraph  # noqa: E402
 from repro.dist.compat import make_mesh  # noqa: E402
 
+
+def direction_tag(direction) -> str:
+    return {False: "td", True: "adaptive"}.get(direction, direction)
+
+
+def put(out, prefix, res):
+    out[f"{prefix}_level"] = np.asarray(res.level)
+    out[f"{prefix}_pred"] = np.asarray(res.pred)
+    out[f"{prefix}_n_levels"] = np.asarray(res.n_levels)
+    out[f"{prefix}_edges"] = np.asarray(res.edges_scanned, np.int64)
+    if res.directions is not None:
+        out[f"{prefix}_directions"] = np.asarray(res.directions)
+
+
 data = np.load(sys.argv[1])
 edges, roots, n = data["edges"], data["roots"], int(data["n"])
 out = {}
 for R, C in GRIDS:
     mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])
-    sess = DistGraph.from_edges(edges, BFSConfig(grid=(R, C)), mesh=mesh,
-                                n=n).session()
+    graph = DistGraph.from_edges(edges, BFSConfig(grid=(R, C)), mesh=mesh,
+                                 n=n)
+    sess = graph.session()
     tag = f"{R}x{C}"
-    one = sess.bfs(int(roots[0]))
-    out[f"{tag}_scalar_level"] = np.asarray(one.level)
-    out[f"{tag}_scalar_pred"] = np.asarray(one.pred)
-    out[f"{tag}_scalar_n_levels"] = np.asarray(one.n_levels)
-    out[f"{tag}_scalar_edges"] = np.asarray(one.edges_scanned, np.int64)
-    many = sess.bfs(roots)
-    out[f"{tag}_batch_level"] = np.asarray(many.level)
-    out[f"{tag}_batch_pred"] = np.asarray(many.pred)
-    out[f"{tag}_batch_n_levels"] = np.asarray(many.n_levels)
-    out[f"{tag}_batch_edges"] = np.asarray(many.edges_scanned, np.int64)
+    put(out, f"{tag}_scalar", sess.bfs(int(roots[0])))
+    put(out, f"{tag}_batch", sess.bfs(roots))
+    if DIRECTION:
+        for direction, codec in DIRECTION_CONFIGS:
+            sess = graph.session(BFSConfig(grid=(R, C), direction=direction,
+                                           fold_codec=codec))
+            put(out, f"{tag}_{direction_tag(direction)}_{codec}_batch",
+                sess.bfs(roots))
 np.savez(sys.argv[2], **out)
 print("OK")

@@ -1,6 +1,7 @@
 """The port's session surface: entry points refuse to run without a card
 unless told device="cpu"; every knob the port does not support yet raises,
-naming its ROADMAP item; `check_vertex_ids` speaks as the JAX one does; the
+naming its ROADMAP item; the direction knobs are accepted and key the
+engine cache; `check_vertex_ids` speaks as the JAX one does; the
 torch R-MAT generator is deterministic per seed, in range and symmetric."""
 import numpy as np
 import pytest
@@ -27,15 +28,53 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("direction", True, "A7"), ("direction", "bottomup", "A7"),
     ("telemetry", True, "A10"), ("fault_tolerance", True, "A11"),
-    ("fold_codec", "bitmap", "A6"), ("fold_codec", "delta", "A6"),
+    ("fold_codec", "delta", "A8"),
     ("exchange", "butterfly", "A9"), ("exchange", "auto", "A9"),
     ("expand_fn", lambda *a: a, "A17"),
 ])
 def test_unsupported_knobs_name_their_roadmap_item(knob, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         BFSConfig(**{knob: value})
+
+
+@pytest.mark.parametrize("knobs", [
+    {"direction": True}, {"direction": "bottomup"},
+    {"direction": "adaptive"}, {"direction": False}, {"direction": None},
+    {"fold_codec": "bitmap"}, {"direction": True, "fold_codec": "bitmap"},
+    {"direction": True, "alpha": 12, "beta": 96, "bottomup": "reference"},
+])
+def test_direction_knobs_are_accepted(knobs):
+    from repro.api import BFSConfig as JaxBFSConfig
+    ours, theirs = BFSConfig(**knobs), JaxBFSConfig(**knobs)
+    assert ours.direction_mode == theirs.direction_mode
+    for k, v in knobs.items():
+        assert getattr(ours, k) == v
+
+
+def test_bad_direction_spelling_raises():
+    with pytest.raises(ValueError, match="direction='sideways'"):
+        BFSConfig(direction="sideways")
+
+
+def test_engine_key_covers_direction_knobs():
+    """Sessions that differ only in a direction knob get their own engine
+    (a direction-enabled session on a graph that already served top-down
+    must not reuse the top-down engine)."""
+    graph = DistGraph.from_edges(EDGES, BFSConfig(), device="cpu")
+    base = graph.session().engine
+    variants = [BFSConfig(direction=True), BFSConfig(direction="bottomup"),
+                BFSConfig(direction=True, alpha=12),
+                BFSConfig(direction=True, beta=32),
+                BFSConfig(direction=True, bottomup="reference"),
+                BFSConfig(fold_codec="bitmap")]
+    engines = [graph.session(c).engine for c in variants]
+    assert len({id(e) for e in [base] + engines}) == len(variants) + 1
+    assert graph.session(BFSConfig(direction=True)).engine is engines[0]
+    assert engines[0].program.mode == "adaptive"
+    assert engines[1].program.mode == "bottomup"
+    assert (engines[2].program.alpha, engines[3].program.beta) == (12, 32)
+    assert base.program.name == "bfs" and base.bottomup_fn is None
 
 
 @pytest.mark.parametrize("knob,value", [

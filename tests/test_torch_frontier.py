@@ -270,3 +270,190 @@ def test_list_fold_and_resolve_preds(R, C, rng):
             from_sender = jnp.take_along_axis(jnp.asarray(recv[j]),
                                               sender[None, :], axis=0)[0]
             eq(got[i, j], jnp.where(own < -1, from_sender, own))
+
+
+# ----------------------------------------------------------------------------
+# Direction optimisation and the value folds
+# ----------------------------------------------------------------------------
+
+def _blocked_words(rng, block, n_blocks, frac):
+    """A blocked frontier bitmap as uint32 (JAX) and its set cols."""
+    W = (block + 31) // 32
+    mask = rng.random(block * n_blocks) < frac
+    words = np.zeros(n_blocks * W, np.uint32)
+    for c in np.flatnonzero(mask):
+        blk, off = c // block, c % block
+        words[blk * W + (off >> 5)] |= np.uint32(1) << np.uint32(off & 31)
+    return words, mask
+
+
+@pytest.mark.parametrize("block", [37, 64])
+@pytest.mark.parametrize("frontier_frac", [0.0, 0.4, 1.0])
+def test_bit_blocks_and_reference_bottomup_chunk(block, frontier_frac, rng):
+    nrl = ncl = 2 * block
+    words, mask = _blocked_words(rng, block, 2, frontier_frac)
+    c = np.arange(ncl, dtype=np.int32)
+    got = F.test_bit_blocks(T(words.view(np.int32)), T(c), block)
+    eq(got, JF.test_bit_blocks(jnp.asarray(words), jnp.asarray(c), block))
+    eq(got, mask)
+
+    deg = rng.integers(0, 6, size=nrl)
+    row_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col_idx = rng.integers(0, ncl, size=6 * nrl).astype(np.int32)
+    visited = rng.random(nrl) < 0.3
+    cumul = np.concatenate([[0], np.cumsum(np.where(visited, 0, deg))]) \
+        .astype(np.int32)
+    total = int(cumul[-1])
+    gids = np.arange(total + 40, dtype=np.int32)   # masked tail included
+    out = F.reference_bottomup_chunk(
+        T(gids), T(cumul), torch.tensor(total, dtype=torch.int32),
+        T(row_off), T(col_idx), T(words.view(np.int32)), block=block)
+    want = JF.reference_bottomup_chunk(
+        jnp.asarray(gids), jnp.asarray(cumul), jnp.int32(total),
+        jnp.asarray(row_off), jnp.asarray(col_idx), jnp.asarray(words),
+        block=block)
+    for a, b in zip(out, want):
+        eq(a, b)
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("kernel_ops", [False, True])
+def test_pack_blocks(R, C, kernel_ops, rng):
+    from repro.algos.program import pack_blocks as jax_pack_blocks
+    from repro_torch.algos.program import pack_blocks
+    S = 13
+    grid = Grid2D(R, C, R * C * S)
+    nrl = grid.n_rows_local
+    imp = rng.random((R, C, nrl)) < 0.4
+    vals = rng.integers(0, 10**6, size=(R, C, nrl)).astype(np.int32)
+    ids, cnt, vs = pack_blocks(T(imp), T(vals), grid,
+                               ops=KF if kernel_ops else None)
+    assert ids.shape == (R, C, C, S) and cnt.shape == (R, C, C)
+    jgrid = JGrid2D(R, C, R * C * S)
+    for i in range(R):
+        for j in range(C):
+            for a, b in zip((ids[i, j], cnt[i, j], vs[i, j]),
+                            jax_pack_blocks(jnp.asarray(imp[i, j]),
+                                            jnp.asarray(vals[i, j]), jgrid)):
+                eq(a, b)
+
+
+def _canonical_buckets(rng, R, C, S, p):
+    """(R, C, C, S) canonical value-fold buckets: bucket m holds ascending
+    distinct local rows m*S + t, front-packed, padded -1."""
+    ids = np.full((R, C, C, S), -1, np.int32)
+    vals = np.full((R, C, C, S), 2**31 - 1, np.int32)
+    cnt = np.zeros((R, C, C), np.int32)
+    for i in range(R):
+        for j in range(C):
+            for m in range(C):
+                t = np.flatnonzero(rng.random(S) < p)
+                ids[i, j, m, :t.size] = m * S + t
+                vals[i, j, m, :t.size] = rng.integers(0, 10**6, t.size)
+                cnt[i, j, m] = t.size
+    return ids, cnt, vals
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
+@pytest.mark.parametrize("S", [1, 33])
+@pytest.mark.parametrize("p", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("kernel_ops", [False, True])
+def test_bitmap_and_list_folds(R, C, S, p, kernel_ops, rng):
+    """BitmapFold.fold / fold_values and ListFold.fold_values equal the JAX
+    codecs' encode / decode over `emulate_exchange`, processor by
+    processor; both codecs deliver the same received set."""
+    from repro.dist import exchange as JX
+    grid = Grid2D(R, C, R * C * S)
+    topo = StackedTopology(grid, torch.device("cpu"))
+    ops = KF if kernel_ops else None
+    ids, cnt, vals = _canonical_buckets(rng, R, C, S, p)
+    bm = X.get_fold_codec("bitmap", grid, ops=ops)
+    lf = X.get_fold_codec("list", grid, ops=ops)
+    iv, ic = bm.fold(T(ids), T(cnt), topo=topo)
+    bi, bc, bv = bm.fold_values(T(ids), T(cnt), T(vals), topo=topo)
+    li, lc, lv = lf.fold_values(T(ids), T(cnt), T(vals), topo=topo)
+    for i in range(R):
+        words = np.stack([np.asarray(JX.BitmapFold.encode(
+            jnp.asarray(ids[i, j]), jnp.asarray(cnt[i, j]), S))
+            for j in range(C)])                              # (C, C, W)
+        recv = emulate_exchange(words, "flat")
+        rvals = emulate_exchange(vals[i], "flat")
+        lmsg = emulate_exchange(np.concatenate(
+            [cnt[i][..., None], ids[i], vals[i]], axis=-1), "flat")
+        for j in range(C):
+            jv, jc = JX.BitmapFold.decode(jnp.asarray(recv[j]), jnp.int32(j),
+                                          S)
+            for got in ((iv, ic), (bi, bc)):
+                eq(got[0][i, j], jv)
+                eq(got[1][i, j], jc)
+            eq(bv[i, j], rvals[j])
+            eq(li[i, j], lmsg[j, :, 1:1 + S])
+            eq(lc[i, j], lmsg[j, :, 0])
+            eq(lv[i, j], lmsg[j, :, 1 + S:])
+            eq(li[i, j], jv)               # same canonical set either way
+    for codec, jcodec in ((bm, JX.BitmapFold()), (lf, JX.ListFold())):
+        assert codec.wire_bytes(grid) == jcodec.wire_bytes(grid)
+        assert codec.wire_bytes_values(grid) == \
+            jcodec.wire_bytes_values(grid)
+        assert codec.wire_bytes_values_sent(grid, int(cnt.sum())) == \
+            jcodec.wire_bytes_values_sent(grid, int(cnt.sum()))
+    assert bm.wire_bytes(grid) == C * 4 * ((S + 31) // 32)
+
+
+def test_bitmap_fold_values_in_process_1x1(rng):
+    """JAX's own `BitmapFold.fold_values` under shard_map at 1x1 against
+    the port's stacked fold."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.dist import exchange as JX
+    from repro.dist.compat import make_mesh, shard_map
+    from repro.dist.topology import Topology
+    S = 45
+    ids, cnt, vals = _canonical_buckets(rng, 1, 1, S, 0.5)
+    mesh = make_mesh((1, 1), ("r", "c"), devices=jax.devices()[:1])
+    jtopo = Topology.for_grid(JGrid2D(1, 1, S), mesh)
+    spec = P("r", "c")
+
+    def fold(a, b, c):
+        out = JX.BitmapFold().fold_values(a[0, 0], b[0, 0], c[0, 0],
+                                          topo=jtopo, j=jnp.int32(0))
+        return tuple(x[None, None] for x in out)
+
+    want = shard_map(fold, mesh=mesh, in_specs=(spec,) * 3,
+                     out_specs=(spec,) * 3)(jnp.asarray(ids),
+                                            jnp.asarray(cnt),
+                                            jnp.asarray(vals))
+    grid = Grid2D(1, 1, S)
+    got = X.BitmapFold(grid).fold_values(
+        T(ids), T(cnt), T(vals), topo=StackedTopology(grid,
+                                                      torch.device("cpu")))
+    for a, b in zip(got, want):
+        eq(a, b)
+
+
+def test_delta_codec_names_its_roadmap_item():
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        X.get_fold_codec("delta", Grid2D(1, 1, 8))
+    with pytest.raises(ValueError, match="unknown fold codec"):
+        X.get_fold_codec("zip", Grid2D(1, 1, 8))
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
+def test_frontier_words(R, C, rng):
+    """The port's stacked `frontier_words` equals the JAX formula: each
+    processor's own frontier packed to S bits, row-gathered."""
+    from repro_torch.algos.direction import frontier_words
+    S = 37
+    grid = Grid2D(R, C, R * C * S)
+    topo = StackedTopology(grid, torch.device("cpu"))
+    front = np.full((R, C, S), -1, np.int32)
+    for i in range(R):
+        for j in range(C):
+            k = rng.integers(0, S + 1)
+            front[i, j, :k] = np.sort(i * S + rng.choice(S, k, replace=False))
+    got = frontier_words(topo, T(front)).numpy()
+    for j in range(C):
+        own = [JF.pack_bitmap(jnp.asarray(np.isin(
+            np.arange(S), front[i, j][front[i, j] >= 0] - i * S)))
+            for i in range(R)]
+        eq(got[j].view(np.uint32), np.concatenate(own))

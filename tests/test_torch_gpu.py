@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.core import frontier as F
+from repro_torch.kernels import bottomup as KB
 from repro_torch.kernels import expand as K
 from repro_torch.kernels import fold as KF
 
@@ -74,3 +75,48 @@ def test_kernels_equal_plain_on_card(cuda_device, rng):
     torch.cuda.synchronize()
     for p, k in zip(plain[0] + (plain[1],), kern[0] + (kern[1],)):
         assert torch.equal(p, k.cpu())
+
+
+@pytest.mark.gpu
+def test_bits_and_bottomup_equal_plain_on_card(cuda_device, rng):
+    """pack_bits, unpack_bits and bottomup_chunk equal their plain
+    versions, and each launch counts: S % 32 != 0, all-false / all-true
+    masks, block % 32 != 0, empty / full frontier, total = 0, a chunk
+    straddling the live total."""
+    for N, S, p in ((3, 100_003, 0.4), (2, 64, 0.0), (4, 33, 1.0)):
+        mask = torch.from_numpy(rng.random((N, S)) < p)
+        n0 = (KF.pack_bits.launches, KF.unpack_bits.launches)
+        words = KF.pack_bits(mask.to(cuda_device))
+        bits = KF.unpack_bits(words, S)
+        torch.cuda.synchronize()
+        assert (KF.pack_bits.launches, KF.unpack_bits.launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        assert torch.equal(words.cpu(), KF.plain_pack_bits(mask))
+        assert torch.equal(bits.cpu(), mask)
+    block, nrl = 1000, 3000
+    deg = rng.integers(0, 9, size=nrl)
+    row_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col_idx = rng.integers(0, nrl, size=int(row_off[-1]) + 7) \
+        .astype(np.int32)
+    visited = rng.random(nrl) < 0.3
+    for frac in (0.0, 0.5, 1.0):
+        front = torch.from_numpy(rng.random((3, block)) < frac)
+        words = KF.plain_pack_bits(front).reshape(-1)
+        for zero in (False, True):
+            cumul = np.concatenate([[0], np.cumsum(
+                np.where(visited | zero, 0, deg))]).astype(np.int32)
+            total = int(cumul[-1])
+            args = [torch.from_numpy(cumul),
+                    torch.tensor(total, dtype=torch.int32),
+                    torch.from_numpy(row_off), torch.from_numpy(col_idx),
+                    words]
+            for start, E in ((0, 4096), (max(total - 100, 0), 512)):
+                plain = KB.plain_bottomup_chunk(start, E, *args, block=block)
+                n0 = KB.bottomup_chunk.launches
+                kern = KB.bottomup_chunk(
+                    start, E, *[a.to(cuda_device) for a in args],
+                    block=block)
+                torch.cuda.synchronize()
+                assert KB.bottomup_chunk.launches == n0 + 1
+                for a, b in zip(plain, kern):
+                    assert torch.equal(a, b.cpu())

@@ -1,4 +1,4 @@
-"""The port's two kernels against the JAX package's Pallas kernels.
+"""The port's kernels against the JAX package's Pallas kernels.
 
   * the plain `expand_chunk` equals `repro.kernels.expand.expand_chunk(...,
     interpret=True)` on (v, won, u), every lane, masked lanes included --
@@ -6,6 +6,11 @@
     lengths that are and are not multiples of 512;
   * the plain `compact_rows` equals `repro.kernels.fold.compact_rows(...,
     interpret=True)`;
+  * the plain `bottomup_chunk` equals `repro.kernels.bottomup.
+    bottomup_chunk(..., interpret=True)` on (r, c, hit), every lane, and
+    the JAX reference scan on its hit lanes; the plain `pack_bits` /
+    `unpack_bits` equal `repro.kernels.fold.pack_bits` / `unpack_bits`
+    (interpret mode), S % 32 != 0 included;
   * CPU tensors take the plain version and launch nothing; "kernel" on the
     CPU raises.
 
@@ -19,11 +24,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import frontier as JF
 from repro.graphgen import rmat_edges as jax_rmat_edges
+from repro.kernels.bottomup import bottomup_chunk as jax_bottomup_chunk
 from repro.kernels.expand import expand_chunk as jax_expand_chunk
 from repro.kernels.fold import compact_rows as jax_compact_rows
+from repro.kernels.fold import pack_bits as jax_pack_bits
+from repro.kernels.fold import unpack_bits as jax_unpack_bits
 from repro_torch.api import BFSConfig, DistGraph
 from repro_torch.core import frontier as F
+from repro_torch.kernels import bottomup as KB
 from repro_torch.kernels import expand as K
 from repro_torch.kernels import fold as KF
 from repro_torch.kernels.select import resolve_path
@@ -146,19 +156,106 @@ def test_plain_compact_rows_real_exchange_row():
     assert int(total) == int(cnts.sum())
 
 
+def _bottomup_inputs(rng, nrl, ncl, block, frontier_frac, e_max=None):
+    """Random CSR, a blocked frontier bitmap and a MASKED-degree workload
+    (some rows visited, their degree zeroed), as in tests/test_direction.py;
+    words as int32 bit patterns."""
+    deg = rng.integers(0, 6, size=nrl)
+    row_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e_max = e_max or 6 * nrl
+    col_idx = rng.integers(0, ncl, size=max(e_max, 1)).astype(np.int32)
+    mask = rng.random(ncl) < frontier_frac
+    W = (block + 31) // 32
+    words = np.zeros(((ncl + block - 1) // block) * W, np.uint32)
+    for c in np.flatnonzero(mask):
+        blk, off = c // block, c % block
+        words[blk * W + (off >> 5)] |= np.uint32(1) << np.uint32(off & 31)
+    visited = rng.random(nrl) < 0.3
+    cumul = np.concatenate(
+        [[0], np.cumsum(np.where(visited, 0, deg))]).astype(np.int32)
+    return row_off, col_idx, words.view(np.int32), cumul
+
+
+def _both_bottomup(row_off, col_idx, words, cumul, total, start, E, block):
+    """(jax kernel (r, c, hit), jax reference, port plain) as numpy."""
+    gids = jnp.asarray(start + np.arange(E, dtype=np.int32))
+    jargs = (jnp.asarray(cumul), jnp.int32(total), jnp.asarray(row_off),
+             jnp.asarray(col_idx), jnp.asarray(words.view(np.uint32)))
+    kern = jax_bottomup_chunk(gids, *jargs, block=block, interpret=True)
+    ref = JF.reference_bottomup_chunk(gids, *jargs, block=block)
+    got = KB.bottomup_chunk(
+        start, E, torch.from_numpy(cumul),
+        torch.tensor(total, dtype=torch.int32), torch.from_numpy(row_off),
+        torch.from_numpy(col_idx), torch.from_numpy(words), block=block)
+    return ([np.asarray(x) for x in kern], [np.asarray(x) for x in ref],
+            [x.numpy() for x in got])
+
+
+@pytest.mark.parametrize("block", [37, 64])
+@pytest.mark.parametrize("frontier_frac", [0.0, 0.4, 1.0])
+@pytest.mark.parametrize("chunk", ["one_tile", "ragged", "straddle",
+                                   "zero_total"])
+def test_plain_bottomup_chunk_equals_pallas(block, frontier_frac, chunk):
+    """Chunks: one 512-lane tile; 1000 lanes (tile 500); 384 lanes
+    straddling the live total; total = 0 (every lane masked)."""
+    rng = np.random.default_rng(block * 10 + int(frontier_frac * 10))
+    nrl = ncl = 2 * block
+    row_off, col_idx, words, cumul = _bottomup_inputs(rng, nrl, ncl, block,
+                                                      frontier_frac)
+    if chunk == "zero_total":
+        cumul = np.zeros_like(cumul)
+    total = int(cumul[-1])
+    start, E = {"one_tile": (0, 512), "ragged": (0, 1000),
+                "straddle": (max(total - 100, 0), 384),
+                "zero_total": (0, 256)}[chunk]
+    kern, ref, got = _both_bottomup(row_off, col_idx, words, cumul, total,
+                                    start, E, block)
+    for k, g in zip(kern, got):              # every lane, masked included
+        np.testing.assert_array_equal(g, k)
+    hit = got[2]
+    np.testing.assert_array_equal(hit, ref[2])
+    for x, y in zip(ref[:2], got[:2]):       # the reference on hit lanes
+        np.testing.assert_array_equal(np.where(hit, y, 0),
+                                      np.where(hit, x, 0))
+    live = start + np.arange(E) < total
+    assert live.any() == (chunk != "zero_total") and not live.all()
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 65])
+@pytest.mark.parametrize("p", [0.0, 0.4, 1.0])
+def test_plain_pack_unpack_bits_equal_pallas(S, p, rng):
+    mask = rng.random((3, S)) < p
+    jw = np.asarray(jax_pack_bits(jnp.asarray(mask), interpret=True))
+    tw = KF.pack_bits(torch.from_numpy(mask))
+    assert tw.dtype == torch.int32 and tw.shape == (3, (S + 31) // 32)
+    np.testing.assert_array_equal(tw.numpy().view(np.uint32), jw)
+    jb = np.asarray(jax_unpack_bits(jnp.asarray(jw), S, interpret=True))
+    tb = KF.unpack_bits(tw, S)
+    np.testing.assert_array_equal(tb.numpy(), jb)
+    np.testing.assert_array_equal(tb.numpy(), mask)
+
+
 def test_cpu_tensors_launch_nothing(rng):
-    before = (K.expand_chunk.launches, KF.compact_rows.launches)
+    counters = (K.expand_chunk, KF.compact_rows, KF.pack_bits,
+                KF.unpack_bits, KB.bottomup_chunk)
+    before = [f.launches for f in counters]
     col_off, row_idx, front, visited = _random_block(rng, 32, 100, 10)
     _both_expand(col_off, row_idx, front, 10, visited, 0, 512)
     mask, a, _ = _random_rows(rng, 2, 50, 0.5)
     KF.compact_rows(torch.from_numpy(mask), (torch.from_numpy(a),), (-1,))
+    KF.unpack_bits(KF.pack_bits(torch.from_numpy(mask)), 50)
+    row_off, col_idx, words, cumul = _bottomup_inputs(rng, 64, 64, 37, 0.5)
+    _both_bottomup(row_off, col_idx, words, cumul, int(cumul[-1]), 0, 128,
+                   37)
     edges = np.asarray(jax_rmat_edges(jax.random.key(42), 6, 4))
-    DistGraph.from_edges(edges, BFSConfig(grid=(2, 2)), device="cpu") \
-        .session().bfs(int(edges[0, 0]))
-    assert (K.expand_chunk.launches, KF.compact_rows.launches) == before
+    graph = DistGraph.from_edges(edges, BFSConfig(grid=(2, 2)), device="cpu")
+    graph.session().bfs(int(edges[0, 0]))
+    graph.session(BFSConfig(grid=(2, 2), direction="bottomup",
+                            fold_codec="bitmap")).bfs(int(edges[0, 0]))
+    assert [f.launches for f in counters] == before
 
 
-@pytest.mark.parametrize("knob", ["expand", "fold"])
+@pytest.mark.parametrize("knob", ["expand", "fold", "bottomup"])
 def test_kernel_path_on_cpu_raises(knob):
     with pytest.raises(ValueError, match="needs a CUDA device"):
         resolve_path("kernel", "cpu", knob=knob)
@@ -168,3 +265,12 @@ def test_kernel_path_on_cpu_raises(knob):
         graph.session(BFSConfig(**{knob: "kernel"}))
     assert resolve_path("auto", "cpu", knob=knob) == "reference"
     assert resolve_path("reference", "cpu", knob=knob) == "reference"
+
+
+@pytest.mark.parametrize("N,S,p", [(1, 70, 0.5), (4, 33, 0.0), (3, 64, 1.0),
+                                   (5, 1000, 0.3)])
+def test_row_prefix_is_the_row_cumsum(N, S, p, rng):
+    """The compaction's flat-scan row prefix equals a per-row cumsum."""
+    mask = torch.from_numpy(rng.random((N, S)) < p)
+    assert torch.equal(KF.row_prefix(mask),
+                       torch.cumsum(mask, dim=1, dtype=torch.int32))

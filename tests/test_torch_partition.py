@@ -1,7 +1,7 @@
-"""The port's `partition_2d` (built block by block in torch) equals the JAX
-package's `repro.core.partition.partition_2d` (one global lexsort in numpy)
-at grids 1x1, 2x2, 1x4 and 2x4: col_off, row_idx in the same order, nnz.
-The index maps agree too.  Exact equality.
+"""The port's `partition_2d` and `partition_2d_csr` (built block by block
+in torch) equal the JAX package's (one global lexsort in numpy) at grids
+1x1, 2x2, 1x4 and 2x4: col_off / row_off, row_idx / col_idx in the same
+order, nnz.  The index maps agree too.  Exact equality.
 """
 import jax
 import numpy as np
@@ -33,8 +33,10 @@ def test_partition_2d_equals_jax(edges, R, C):
 
 
 def test_partition_2d_in_pieces(edges, monkeypatch):
-    """Pieces smaller than the edge list give the same partition."""
+    """Pieces and sort ranges smaller than the edge list give the same
+    partition."""
     monkeypatch.setattr(P, "EDGE_PIECE", 1000)
+    monkeypatch.setattr(P, "SORT_PIECE", 700)
     want = JP.partition_2d(edges, JGrid2D(2, 4, N), pad_to=9000)
     got = P.partition_2d(torch.from_numpy(edges.copy()), Grid2D(2, 4, N),
                          pad_to=9000)
@@ -43,6 +45,30 @@ def test_partition_2d_in_pieces(edges, monkeypatch):
     with pytest.raises(ValueError, match="pad_to=10"):
         P.partition_2d(torch.from_numpy(edges.copy()), Grid2D(2, 4, N),
                        pad_to=10)
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
+def test_partition_2d_csr_equals_jax(edges, R, C):
+    want = JP.partition_2d_csr(edges, JGrid2D(R, C, N))
+    got = P.partition_2d_csr(torch.from_numpy(edges.copy()), Grid2D(R, C, N))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
+
+
+def test_partition_2d_csr_in_pieces(edges, monkeypatch):
+    """Pieces and sort ranges smaller than the edge list give the same CSR
+    twin."""
+    monkeypatch.setattr(P, "EDGE_PIECE", 1000)
+    monkeypatch.setattr(P, "SORT_PIECE", 700)
+    want = JP.partition_2d_csr(edges, JGrid2D(2, 4, N), pad_to=9000)
+    got = P.partition_2d_csr(torch.from_numpy(edges.copy()), Grid2D(2, 4, N),
+                             pad_to=9000)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
+    with pytest.raises(ValueError, match="pad_to=10"):
+        P.partition_2d_csr(torch.from_numpy(edges.copy()), Grid2D(2, 4, N),
+                           pad_to=10)
 
 
 @pytest.mark.parametrize("R,C", [(1, 1), (2, 2), (1, 4), (2, 4)])
