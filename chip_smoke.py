@@ -634,16 +634,15 @@ def main() -> int:
     live_mask = start + torch.arange(E, device=dev) < btotal
     live = int(live_mask.sum())
     block = bkw["block"]
-    if live:
-        rows = int(r_out[live_mask].max()) - int(r_out[live_mask].min()) + 1
-        c_live = c_out[live_mask].long()
-        wid = (c_live // block) * ((block + 31) // 32) + (c_live % block) // 32
-        n_words = int(torch.unique(wid).numel())
-    else:
-        rows = n_words = 0
-    # col_idx + frontier words + the spanned rows' row_off / cumul in,
-    # r / c / hit out
-    b_bytes = 4 * live + 4 * n_words + 8 * rows + 9 * E
+    # the rows that own a live lane: visited rows between them are zero-width
+    # runs of cumul that the search never has to read
+    rows = int(torch.unique(r_out[live_mask]).numel())
+    c_live = c_out[live_mask].long()
+    wid = (c_live // block) * ((block + 31) // 32) + (c_live % block) // 32
+    n_words = int(torch.unique(wid).numel())
+    # col_idx per live lane + distinct frontier words + each owning row's
+    # row_off[r], cumul[r], cumul[r + 1] in; r / c / hit out
+    b_bytes = 4 * live + 4 * n_words + 12 * rows + 9 * E
     b_ms = cuda_ms(torch, lambda: KB.bottomup_chunk(start, E, *bargs, **bkw))
     b_plain = cuda_ms(
         torch, lambda: KB.plain_bottomup_chunk(start, E, *bargs, **bkw),

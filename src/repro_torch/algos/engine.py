@@ -18,9 +18,9 @@ from __future__ import annotations
 
 from repro_torch.dist.exchange import get_fold_codec
 from repro_torch.dist.strategy import get_exchange
+from repro_torch.kernels import bottomup as bottomup_kernels
 from repro_torch.kernels import expand as expand_kernels
 from repro_torch.kernels import fold as fold_kernels
-from repro_torch.kernels.bottomup import make_bottomup_fn
 from repro_torch.kernels.select import resolve_path
 
 
@@ -66,8 +66,9 @@ class FrontierEngine:
         self.expand_fn = (expand_kernels.expand_chunk
                           if self.expand_path == "kernel" else None)
         self.fold_ops = fold_kernels if self.fold_path == "kernel" else None
-        self.bottomup_fn = (make_bottomup_fn(self.bottomup_path)
-                            if program.uses_bottomup else None)
+        self.bottomup_fn = (bottomup_kernels.bottomup_chunk
+                            if program.uses_bottomup
+                            and self.bottomup_path == "kernel" else None)
         self.codec = get_fold_codec(
             fold_codec if fold_codec is not None else program.codec_hint,
             topo.grid, ops=self.fold_ops)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import frontier as F
 from repro_torch.core.types import Grid2D
 
 I32_MAX = 2**31 - 1
@@ -85,28 +86,18 @@ def pack_blocks(improved, vals, grid: Grid2D, fill_val=I32_MAX, ops=None):
     requires).  Returns (ids (..., C, S) local-row ids pad -1, cnt
     (..., C), vals (..., C, S) aligned, pad `fill_val`).
 
-    ops: the fold-kernel bundle whose `compact_rows` replaces the argsort;
-    bit-identical either way."""
+    ops: the fold-kernel bundle for `core.frontier.compact_offsets`, which
+    front-packs the offsets; bit-identical either way."""
     C, S = grid.C, grid.S
     lead = improved.shape[:-1]
     imp = improved.reshape(-1, S)
-    vv = vals.reshape(-1, S)
+    ts, cnt = F.compact_offsets(imp, ops)
     m = torch.arange(C, dtype=torch.int32,
                      device=imp.device).repeat(imp.shape[0] // C)[:, None]
-    if ops is not None:
-        t = torch.arange(S, dtype=torch.int32,
-                         device=imp.device).expand(imp.shape).contiguous()
-        # pads are -1, so m*S + ts cannot overflow and one mask suffices
-        (ts, vs), cnt = ops.compact_rows(imp, (t, vv.contiguous()),
-                                         (-1, fill_val))
-        ids = torch.where(ts >= 0, m * S + ts, -1)
-    else:
-        t = torch.arange(S, dtype=torch.int32, device=imp.device)
-        key = torch.where(imp, t, I32_MAX)
-        ts, order = torch.sort(key, dim=1, stable=True)
-        ok = ts < I32_MAX
-        ids = torch.where(ok, m * S + torch.where(ok, ts, 0), -1)
-        vs = torch.where(ok, torch.gather(vv, 1, order), fill_val)
-        cnt = imp.sum(dim=1, dtype=torch.int32)
+    ok = ts >= 0
+    # pads are -1, so m*S + ts cannot overflow and one mask suffices
+    ids = torch.where(ok, m * S + ts, -1)
+    vs = torch.where(ok, torch.gather(vals.reshape(-1, S), 1,
+                                      ts.clamp(min=0).long()), fill_val)
     return (ids.reshape(lead + (C, S)), cnt.reshape(lead + (C,)),
             vs.reshape(lead + (C, S)))

@@ -65,7 +65,7 @@ class FoldCodec:
     codec's encode / decode stages; None = the plain formulas."""
     name = "?"
 
-    def __init__(self, grid: Grid2D = None, ops=None):
+    def __init__(self, ops=None):
         self.ops = ops
 
     def wire_bytes(self, grid: Grid2D) -> int:
@@ -194,17 +194,18 @@ FOLD_CODECS = {"list": ListFold, "bitmap": BitmapFold}
 
 
 def get_fold_codec(spec, grid: Grid2D, ops=None) -> FoldCodec:
-    """Resolve "list" | "bitmap" | a FoldCodec instance.  ops: the
-    fold-kernel bundle threaded into a constructed codec (ignored for an
-    instance)."""
+    """Resolve "list" | "bitmap" | a FoldCodec instance for `grid`.  ops:
+    the fold-kernel bundle threaded into a constructed codec (ignored for
+    an instance)."""
     if isinstance(spec, FoldCodec):
         return spec
     if spec == "delta":
         raise ValueError(
-            f"fold_codec='delta' is not ported yet (ROADMAP A8); the port "
-            f"has {sorted(FOLD_CODECS)}")
+            f"fold_codec='delta' is not ported yet (ROADMAP A8; it needs "
+            f"S <= 65536, this grid has S={grid.S}); the port has "
+            f"{sorted(FOLD_CODECS)}")
     try:
-        return FOLD_CODECS[spec](grid, ops)
+        return FOLD_CODECS[spec](ops)
     except KeyError:
         raise ValueError(
             f"unknown fold codec {spec!r}; choose from {sorted(FOLD_CODECS)}")

@@ -121,9 +121,3 @@ def bottomup_chunk(start: int, n_lanes: int, cumul, total, row_off,
 
 bottomup_chunk.launches = 0
 
-
-def make_bottomup_fn(path: str):
-    """The bottom-up steps' chunk hook for a resolved path: the kernel
-    wrapper for "kernel", None (the inline reference scan) for
-    "reference"."""
-    return bottomup_chunk if path == "kernel" else None

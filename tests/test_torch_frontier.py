@@ -424,7 +424,7 @@ def test_bitmap_fold_values_in_process_1x1(rng):
                                             jnp.asarray(cnt),
                                             jnp.asarray(vals))
     grid = Grid2D(1, 1, S)
-    got = X.BitmapFold(grid).fold_values(
+    got = X.BitmapFold().fold_values(
         T(ids), T(cnt), T(vals), topo=StackedTopology(grid,
                                                       torch.device("cpu")))
     for a, b in zip(got, want):
