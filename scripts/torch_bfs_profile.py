@@ -2,13 +2,17 @@
 """Where one search of the PyTorch port spends its time on an NVIDIA GPU.
 
     python3 scripts/torch_bfs_profile.py [--scale 26] [--grid 2x2]
-        [--edge-chunk 4194304] [--seed 1] [--direction] [--out FILE.json]
+        [--edge-chunk 4194304] [--seed 1] [--direction]
+        [--algo bfs|cc|sssp] [--out FILE.json]
 
-Generates the R-MAT graph on the card (as chip_smoke.py does), plans it,
-runs one warm-up search, then one search under torch.profiler with CUDA
-activity.  --direction profiles the direction-optimised path
-(`BFSConfig(direction=True, fold_codec="bitmap")`, CSR twin planned first)
-instead of the top-down one.  Prints the search's wall time, the
+Generates the R-MAT graph on the card (as chip_smoke.py does, with the same
+uint8 weights in 1..255 for SSSP), plans it, runs one warm-up search, then
+one search under torch.profiler with CUDA activity.  --direction profiles
+the direction-optimised path (`BFSConfig(direction=True,
+fold_codec="bitmap")`, CSR twin planned first) instead of the top-down one.
+--algo picks the program: BFS from the first vertex with an edge (the
+default), connected components (`connected_components()`, its bitmap
+codec), or SSSP from that vertex.  Prints the search's wall time, the
 device-busy time (sum of the kernels' device time) and the idle share, and
 the ops with the most device time: what bounds the search today, in order.
 """
@@ -34,6 +38,7 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--direction", action="store_true",
                     help="profile direction=True with the bitmap codec")
+    ap.add_argument("--algo", choices=("bfs", "cc", "sssp"), default="bfs")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -58,26 +63,34 @@ def main() -> int:
     edges = rmat_edges(args.scale, args.edge_factor,
                        torch.Generator(device=dev).manual_seed(args.seed),
                        dev)
+    weights = None
+    if args.algo == "sssp":
+        weights = torch.randint(1, 256, (edges.shape[1],), dtype=torch.uint8,
+                                device=dev, generator=torch.Generator(
+                                    device=dev).manual_seed(args.seed + 1))
     knobs = dict(direction=True, fold_codec="bitmap") if args.direction \
         else {}
     graph = DistGraph.from_edges(
         edges, BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk, **knobs),
-        n=n)
+        n=n, weights=weights)
     deg = torch.bincount(edges[0].long(), minlength=n)
     root = int(torch.nonzero(deg > 0)[0])
     del deg
     sess = graph.session()
-    sess.bfs(root)                                   # warm-up
+    search = {"bfs": lambda: sess.bfs(root),
+              "cc": sess.connected_components,
+              "sssp": lambda: sess.sssp(root)}[args.algo]
+    search()                                         # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sess.bfs(root)
+    search()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = sess.bfs(root)
+        out = search()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
     # the device's own events are the kernels (and copies/memsets); the
@@ -91,10 +104,12 @@ def main() -> int:
     busy_ms = sum(r["device_ms"] for r in rows)
     directions = None if out.directions is None \
         else "".join("TB"[d] for d in out.directions.tolist() if d >= 0)
+    levels = int(out.n_levels if args.algo == "bfs" else out.n_iters)
     report = {"device": smi, "scale": args.scale, "grid": [R, C],
-              "edge_chunk": args.edge_chunk, "root": root,
+              "edge_chunk": args.edge_chunk, "algo": args.algo,
+              "root": None if args.algo == "cc" else root,
               "config": knobs, "directions": directions,
-              "levels": int(out.n_levels),
+              "levels": levels,
               "edges_scanned": out.edges_scanned,
               "search_s": plain_s, "profiled_search_s": prof_s,
               "device_busy_ms": busy_ms,
@@ -102,7 +117,7 @@ def main() -> int:
               "top": rows[:args.top]}
     print(f"device: {smi}")
     print(f"SCALE {args.scale} grid {R}x{C} edge_chunk {args.edge_chunk} "
-          f"root {root} {knobs}: {report['levels']} levels, "
+          f"{args.algo} root {report['root']} {knobs}: {levels} levels, "
           f"{out.edges_scanned} edges scanned, directions {directions}")
     print(f"search {plain_s:.4f} s unprofiled, {prof_s:.4f} s profiled; "
           f"device busy {busy_ms:.1f} ms; idle share "

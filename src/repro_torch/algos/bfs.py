@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.algos import program as PR
 from repro_torch.algos.program import FrontierProgram
 from repro_torch.core import frontier as F
 from repro_torch.core.partition import local_col, local_row, owner_of, \
@@ -42,15 +43,6 @@ def init_state(root: int, *, grid: Grid2D, device) -> BFSState:
                     front_cnt=cnt, lvl=1)
 
 
-def owned_level(level, *, grid: Grid2D):
-    """(R, C, n_rows_local [+ 1]) -> every processor's owned block
-    (R, C, S): processor (i, j) owns local rows j*S .. j*S + S - 1."""
-    R, C, S = grid.R, grid.C, grid.S
-    blocks = level[..., :grid.n_rows_local].reshape(R, C, C, S)
-    cols = torch.arange(C, device=level.device)
-    return blocks[:, cols, cols]
-
-
 def canonical_front(front, cnt):
     """Sort the padded frontier ascending (pad -1 stays at the back).
 
@@ -76,14 +68,9 @@ def plan_level(engine, graph, st: BFSState) -> LevelPlan:
     """Expand exchange (paper line 13) + every processor's scan workload."""
     all_front, front_total = X.expand_exchange(
         st.front, st.front_cnt, topo=engine.topo, ops=engine.fold_ops)
-    cumul, totals = [], []
-    for i, j in engine.topo.coords():
-        c, t = F.scan_plan(graph.col_off[i, j], all_front[i, j],
-                           front_total[i, j])
-        cumul.append(c)
-        totals.append(t)
-    counts = torch.stack([engine.topo.psum_all(st.front_cnt)] + totals)
-    return LevelPlan(all_front, front_total, cumul, counts.to(torch.int64))
+    cumul, counts = PR.scan_workload(engine, graph, all_front, front_total,
+                                     st.front_cnt)
+    return LevelPlan(all_front, front_total, cumul, counts)
 
 
 def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
@@ -171,10 +158,8 @@ class BFSLevelsProgram(FrontierProgram):
         grid = engine.grid
         pred = X.resolve_preds(st.pred[..., :grid.n_rows_local],
                                topo=engine.topo)
-        level = owned_level(st.level, grid=grid)
-        # (R, C, S) -> block order b = j*R + i
-        return (level.transpose(0, 1).reshape(-1),
-                pred.transpose(0, 1).reshape(-1), st.lvl)
+        return (PR.global_order(PR.owned_rows(st.level, grid)),
+                PR.global_order(pred), st.lvl)
 
     def assemble(self, engine, outs, B):
         """Per-search (level, pred, lvl, edges) -> BFSOutput: (n,) arrays,

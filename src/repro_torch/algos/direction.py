@@ -53,6 +53,88 @@ class FrontPlan:
 
 
 # ----------------------------------------------------------------------------
+# The value programs' pull scan
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PullPlan:
+    """A bottom-up value level's frontier bitmap, dense payload and scan
+    workload, before the host read."""
+    all_words: torch.Tensor    # (C, R * W) int32 frontier bitmap per column
+    dense_pay: torch.Tensor    # (C, n_cols_local) int32 payload per column
+    cumul: list                # per processor: (nrl + 1,) int32 masked cumsum
+    total: list                # per processor: () int32 live edges
+    counts: torch.Tensor       # (1 + P,) int64: global frontier, then every
+                               #   processor's edges to scan
+
+
+def make_pull_scan(engine, row_off, col_idx, *, relax, csr_edge_vals=None,
+                   skip_fn=None):
+    """Bottom-up twin of a value step's push scan: every local row not
+    skipped scans its CSR in-edges; an edge from frontier col c
+    proposes `relax(dense_pay[c], w)`, min-combined per row.  CSR and CSC
+    hold the same local edges and the combine is order-independent, so the
+    candidates equal the push scan's on every row not skipped.
+
+    row_off, col_idx, csr_edge_vals: the stacked CSR twin and its
+    CSR-ordered edge values.  skip_fn: state -> (R, C, nrl) bool; skipped
+    rows add no edges to the workload (multi-source BFS skips visited rows:
+    JAX's `row_mask_fn`, negated).  Returns (plan_fn(state) -> PullPlan, scan(state, plan,
+    block_edges) -> cand (R, C, nrl)), the scan half for
+    `algos.program.make_value_step`."""
+    topo, grid = engine.topo, engine.grid
+    R, C, S = grid.R, grid.C, grid.S
+    nrl, ncl = grid.n_rows_local, grid.n_cols_local
+    chunk = engine.edge_chunk
+    dev = engine.device
+
+    def plan(st):
+        valid = st.front >= 0
+        i_s = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1) * S
+        slot = torch.arange(S, dtype=torch.int32, device=dev)
+        # a pad adds 0 at its own slot, never over a valid entry's payload
+        own_pay = torch.zeros((R, C, S), dtype=torch.int32, device=dev)
+        own_pay.scatter_add_(2, torch.where(valid, st.front - i_s,
+                                            slot).long(),
+                             torch.where(valid, st.payload, 0))
+        # column j's row-gather: grid row r's block at cols r*S ..
+        dense_pay = own_pay.transpose(0, 1).reshape(C, ncl)
+        cumul, totals, counts = pull_workload(
+            topo, row_off, st.front_cnt,
+            skip=None if skip_fn is None else skip_fn(st))
+        return PullPlan(frontier_words(topo, st.front), dense_pay, cumul,
+                        totals, counts)
+
+    def scan(st, plan, block_edges):
+        bu_fn = engine.value_bottomup_fn
+        cand = torch.full((R, C, nrl), I32_MAX, dtype=torch.int32,
+                          device=dev)
+        lanes = torch.arange(chunk, dtype=torch.int32, device=dev)
+        slots = PR.own_slots(chunk, nrl, dev)
+        for p, (i, j) in enumerate(topo.coords()):
+            words, pay_j = plan.all_words[j], plan.dense_pay[j]
+            cumul, total = plan.cumul[p], plan.total[p]
+            for start in range(0, block_edges[p], chunk):
+                if bu_fn is None:
+                    r, pay, addr, hit = F.reference_bottomup_values_chunk(
+                        start + lanes, cumul, total, row_off[i, j],
+                        col_idx[i, j], words, pay_j, block=S)
+                else:
+                    r, pay, addr, hit = bu_fn(start, chunk, cumul, total,
+                                              row_off[i, j], col_idx[i, j],
+                                              words, pay_j, block=S)
+                w = None if csr_edge_vals is None \
+                    else csr_edge_vals[i, j][addr]
+                val = torch.where(hit, relax(pay, w), I32_MAX)
+                # a miss adds min's identity at its own slot
+                cand[i, j].scatter_reduce_(
+                    0, torch.where(hit, r.long(), slots), val, "amin")
+        return cand
+
+    return plan, scan
+
+
+# ----------------------------------------------------------------------------
 # The BFS bottom-up step
 # ----------------------------------------------------------------------------
 
@@ -80,6 +162,25 @@ def frontier_words(topo, front):
     return words.view(R, C, W).transpose(0, 1).reshape(C, R * W)
 
 
+def pull_workload(topo, row_off, front_cnt, skip=None):
+    """Every processor's bottom-up scan workload: the exclusive cumsum of
+    its rows' CSR degrees, a row where `skip` (R, C, nrl[+ 1]) is set
+    counting 0 edges.  Returns (per processor (nrl + 1,) int32 cumul, per
+    processor () int32 total, the (1 + P,) int64 counts: the global
+    frontier size, then every processor's edges to scan)."""
+    nrl = topo.grid.n_rows_local
+    cumul, totals = [], []
+    for i, j in topo.coords():
+        deg = torch.diff(row_off[i, j])
+        if skip is not None:
+            deg = torch.where(skip[i, j, :nrl], 0, deg)
+        c = F.exclusive_cumsum(deg)
+        cumul.append(c)
+        totals.append(c[nrl])
+    counts = torch.stack([topo.psum_all(front_cnt)] + totals)
+    return cumul, totals, counts.to(torch.int64)
+
+
 @dataclasses.dataclass
 class BottomUpPlan:
     """A bottom-up level's frontier bitmap and scan workload, before the
@@ -96,18 +197,10 @@ def plan_bottomup(engine, row_off, st: BFSState) -> BottomUpPlan:
     only unvisited rows' in-edges are scanned (the visited cache is
     consistent across the processor-row, so these are exactly the
     globally-undiscovered rows of the block)."""
-    topo = engine.topo
-    nrl = engine.grid.n_rows_local
-    all_words = frontier_words(topo, st.front)
-    cumul, totals = [], []
-    for i, j in topo.coords():
-        deg = torch.where(st.visited[i, j, :nrl], 0,
-                          torch.diff(row_off[i, j]))
-        c = F.exclusive_cumsum(deg)
-        cumul.append(c)
-        totals.append(c[nrl])
-    counts = torch.stack([topo.psum_all(st.front_cnt)] + totals)
-    return BottomUpPlan(all_words, cumul, totals, counts.to(torch.int64))
+    cumul, totals, counts = pull_workload(engine.topo, row_off, st.front_cnt,
+                                          skip=st.visited)
+    return BottomUpPlan(frontier_words(engine.topo, st.front), cumul, totals,
+                        counts)
 
 
 def bottomup_step(engine, row_off, col_idx, st: BFSState,
@@ -125,7 +218,7 @@ def bottomup_step(engine, row_off, col_idx, st: BFSState,
     chunk = engine.edge_chunk
     bu_fn = engine.bottomup_fn
     cols = torch.arange(C, device=dev)
-    vis_owned_prev = st.visited[..., :nrl].reshape(R, C, C, S)[:, cols, cols]
+    vis_owned_prev = PR.owned_rows(st.visited, grid)
     found = torch.empty((R, C, nrl), dtype=torch.bool, device=dev)
     parent_g = torch.empty((R, C, nrl), dtype=torch.int32, device=dev)
     slots = torch.arange(chunk, dtype=torch.int32, device=dev)
@@ -237,6 +330,13 @@ class DirectionProgram(FrontierProgram):
         self.beta = int(beta)
         self.name = "dir+" + inner.name
         self.codec_hint = inner.codec_hint
+        # inner extras first, then the CSR twin (row_off, col_idx[, w_csr])
+        self.n_extra = inner.n_extra + inner.n_csr_extra
+
+    @property
+    def key(self) -> tuple:
+        return ("dir",) + tuple(self.inner.key) + (self.mode, self.alpha,
+                                                   self.beta)
 
     def init(self, engine, graph, arg):
         return DirState(inner=self.inner.init(engine, graph, arg), dirs=[])
@@ -246,7 +346,8 @@ class DirectionProgram(FrontierProgram):
         return FrontPlan(total.to(torch.int64).reshape(1))
 
     def make_step(self, engine, graph, extra=()):
-        td_step = self.inner.make_step(engine, graph, extra)
+        td_step = self.inner.make_step(engine, graph,
+                                       extra[:self.inner.n_extra])
         bu_plan, bu_step = self.inner.make_bottomup_step(engine, graph,
                                                          extra)
         n = engine.grid.n                   # padded, as in the JAX program

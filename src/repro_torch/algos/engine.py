@@ -33,14 +33,17 @@ class FrontierEngine:
     edge_chunk: CSC scan chunk size of the expand phase.
     max_levels: loop bound fed to `program.keep_going`.
     expand:     "auto" | "kernel" | "reference": the chunk scan through the
-                CUDA `expand_chunk` kernel or the plain torch formulas
+                CUDA `expand_chunk` kernel (`expand_chunk_values` for the
+                value programs) or the plain torch formulas
                 (`kernels/select.py`).
     fold:       the same spellings for the fold kernels (`compact_rows`,
-                the bitmap codec's `pack_bits` / `unpack_bits`).
+                the bitmap codec's `pack_bits` / `unpack_bits`, the delta
+                codec's `delta_gaps` / `delta_positions`).
     dedup:      winner-selection method ("scatter" | "sort").
     bottomup:   the same spellings for the bottom-up chunk scan
-                (`bottomup_chunk`); consulted only by programs that declare
-                `uses_bottomup` (the direction-optimising wrapper).
+                (`bottomup_chunk`, `bottomup_chunk_values`); consulted only
+                by programs that declare `uses_bottomup` (the
+                direction-optimising wrapper).
     exchange:   fold exchange strategy ("flat").
     """
 
@@ -63,12 +66,16 @@ class FrontierEngine:
         self.fold_path = resolve_path(fold, self.device, knob="fold")
         self.bottomup_path = resolve_path(bottomup, self.device,
                                           knob="bottomup")
-        self.expand_fn = (expand_kernels.expand_chunk
-                          if self.expand_path == "kernel" else None)
+        expand_k = self.expand_path == "kernel"
+        self.expand_fn = expand_kernels.expand_chunk if expand_k else None
+        self.value_expand_fn = (expand_kernels.expand_chunk_values
+                                if expand_k else None)
         self.fold_ops = fold_kernels if self.fold_path == "kernel" else None
+        bottomup_k = program.uses_bottomup and self.bottomup_path == "kernel"
         self.bottomup_fn = (bottomup_kernels.bottomup_chunk
-                            if program.uses_bottomup
-                            and self.bottomup_path == "kernel" else None)
+                            if bottomup_k else None)
+        self.value_bottomup_fn = (bottomup_kernels.bottomup_chunk_values
+                                  if bottomup_k else None)
         self.codec = get_fold_codec(
             fold_codec if fold_codec is not None else program.codec_hint,
             topo.grid, ops=self.fold_ops)

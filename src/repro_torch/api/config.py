@@ -22,7 +22,8 @@ class BFSConfig:
 
     grid:        Grid2D | (R, C) | "RxC" | None (None = 1 x 1: the port
                  stacks the grid on one device).
-    fold_codec:  "list" | "bitmap" | a FoldCodec (delta: ROADMAP A8).
+    fold_codec:  "list" | "bitmap" | "delta" (needs S <= 65536) | a
+                 FoldCodec.
     edge_chunk:  CSC scan chunk size of the expand phase.  Results do not
                  depend on it; on a card a large chunk (2^22) amortises the
                  per-chunk claim array of the scatter dedup.
@@ -30,7 +31,7 @@ class BFSConfig:
     max_levels:  level-loop bound.
     expand:      "auto" | "kernel" | "reference" for the chunk scan.
     fold:        "auto" | "kernel" | "reference" for the compaction and
-                 the bitmap codec's bit packing.
+                 the bitmap and delta codecs' encode / decode.
     exchange:    "flat" (butterfly / auto: ROADMAP A9).
     direction:   False | None (top-down) | True | "adaptive" | "bottomup";
                  needs the CSR twin, planned on the first such session.
@@ -69,7 +70,6 @@ class BFSConfig:
         unsupported = (
             ("telemetry", bool(self.telemetry), "A10"),
             ("fault_tolerance", bool(self.fault_tolerance), "A11"),
-            ("fold_codec", self.fold_codec == "delta", "A8"),
             ("exchange", self.exchange != "flat", "A9"),
             ("expand_fn", self.expand_fn is not None, "A17"),
         )
@@ -111,6 +111,16 @@ class BFSConfig:
         return (self.fold_codec, self.direction_mode, self.edge_chunk,
                 self.dedup, self.max_levels, self.alpha, self.beta,
                 self.expand, self.fold, self.bottomup, self.exchange)
+
+    def algo_engine_key(self, program_key: tuple, codec_name: str,
+                        max_levels: int) -> tuple:
+        """Cache key of a value-program engine (CC, SSSP, multi-source
+        BFS): the program's identity (direction mode, alpha and beta ride
+        in the direction wrapper's key) plus the knobs the engine bakes in;
+        the codec and `max_levels` are per call."""
+        return ("algo", program_key, codec_name, self.edge_chunk, self.dedup,
+                max_levels, self.expand, self.fold, self.bottomup,
+                self.exchange)
 
     def resolve_grid(self, n: int) -> Grid2D:
         """Concretise the `grid` spelling against n vertices (padding up)."""

@@ -3,8 +3,9 @@
 `graph_from_partition` takes the arrays of `repro.core.partition.
 partition_2d` (numpy, leading (R, C) dims) and builds the port's
 `LocalGraph2D` on a device, and `csr_from_partition` does the same for the
-CSR twin of `partition_2d_csr`, so both packages can search the very same
-partition.  BFS has no weights: the partitioned graph plays that role.
+CSR twin of `partition_2d_csr`, and `edge_vals_from_partition` for the
+per-edge values of `partition_edge_vals(_csr)` (SSSP's weights), so both
+packages can search the very same partition with the very same weights.
 """
 from __future__ import annotations
 
@@ -46,4 +47,15 @@ def csr_from_partition(grid: Grid2D, row_off, col_idx, nnz, device) -> dict:
         raise ValueError(
             f"CSR shapes {[tuple(t.shape) for t in out.values()]} do not "
             f"fit grid {R}x{C} with {nrl} local rows")
+    return out
+
+
+def edge_vals_from_partition(grid: Grid2D, vals, device) -> torch.Tensor:
+    """(R, C, e_max) per-edge values (numpy, any integer dtype, e.g. the
+    uint8 weights of `partition_edge_vals`) -> a tensor of that dtype on
+    `device`, its leading dims checked against `grid`."""
+    out = torch.as_tensor(np.asarray(vals), device=device)
+    if out.dim() != 3 or out.shape[:2] != (grid.R, grid.C):
+        raise ValueError(f"edge values of shape {tuple(out.shape)} do not "
+                         f"fit grid {grid.R}x{grid.C}")
     return out

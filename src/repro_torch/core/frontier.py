@@ -151,9 +151,21 @@ def append_padded(buf, cnt, vals, valid):
     return b[0], c[0]
 
 
-def _wrap_i32(x64):
-    """int64 values in [0, 2^32) -> the int32 with the same bit pattern."""
-    return torch.where(x64 >= 2**31, x64 - 2**32, x64).to(torch.int32)
+def wrap_i32(x64):
+    """int64 -> int32 with the two's-complement wrap of JAX's int32."""
+    return ((x64 + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def u16_bits(x):
+    """Integers -> int16 tensor holding the uint16 bit pattern of x mod
+    2^16 (the delta codec's wire type; torch's uint16 has few ops)."""
+    x = x.to(torch.int32) & 0xFFFF
+    return torch.where(x >= 0x8000, x - 0x10000, x).to(torch.int16)
+
+
+def u16_values(bits):
+    """int16 uint16 bit patterns -> their int32 values in [0, 65536)."""
+    return bits.to(torch.int32) & 0xFFFF
 
 
 def pack_bitmap(mask):
@@ -168,7 +180,7 @@ def pack_bitmap(mask):
     m = mask.reshape(mask.shape[:-1] + (W, 32)).to(torch.int64)
     weights = torch.ones(32, dtype=torch.int64, device=mask.device) \
         << torch.arange(32, device=mask.device)
-    return _wrap_i32((m * weights).sum(dim=-1))
+    return wrap_i32((m * weights).sum(dim=-1))
 
 
 def unpack_bitmap(words, S: int):
@@ -185,7 +197,7 @@ def set_bits(words, v, take):
     single-bit values is an exact OR that never overflows int32 (bit 31 is
     the int32 minimum).  Untaken lanes add 0 to their own word (not all to
     one word, where their atomics would serialise)."""
-    bit = _wrap_i32(torch.ones_like(v, dtype=torch.int64) << (v & 31).long())
+    bit = wrap_i32(torch.ones_like(v, dtype=torch.int64) << (v & 31).long())
     w = (v >> 5).clamp(0, words.shape[0] - 1)
     words.index_add_(0, w.long(), torch.where(take, bit, 0))
     return words
@@ -242,6 +254,18 @@ def reference_bottomup_chunk(gids, cumul, total, row_off, col_idx, words, *,
     c = torch.where(valid, col_idx[addr], 0).to(torch.int32)
     hit = valid & test_bit_blocks(words, c, block)
     return r, c, hit
+
+
+def reference_bottomup_values_chunk(gids, cumul, total, row_off, col_idx,
+                                    words, dense_pay, *, block: int):
+    """`reference_bottomup_chunk` with the pulled value: the value programs
+    read the frontier neighbour's label / distance / source from a dense
+    per-col channel.  Returns (r, pay, addr, hit), addr the clipped CSR
+    edge address (for per-edge values)."""
+    r, c, hit = reference_bottomup_chunk(gids, cumul, total, row_off,
+                                         col_idx, words, block=block)
+    addr = (row_off[r] + gids - cumul[r]).clamp(0, col_idx.shape[0] - 1)
+    return r, dense_pay[c], addr, hit
 
 
 def scan_plan(col_off, all_front, front_total):

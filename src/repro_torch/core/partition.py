@@ -7,7 +7,9 @@ then stable-sort them by local column (by local row for the CSR twin), in
 column ranges of at most SORT_PIECE edges -- so the temporaries are a
 fraction of one block's worth.  The result equals the JAX `partition_2d` /
 `partition_2d_csr` exactly: the same stable (block, column) or (block, row)
-order, so the same offsets, indices and `nnz`.
+order, so the same offsets, indices and `nnz`.  `partition_edge_vals(_csr)`
+run the same walk with per-edge values (SSSP's weights) as the payload, so
+they line up with the indices by construction.
 """
 from __future__ import annotations
 
@@ -95,14 +97,19 @@ def _block_counts(edges: torch.Tensor, grid: Grid2D,
     return counts, e_max
 
 
-def _block_edges(edges: torch.Tensor, grid: Grid2D, p: int):
-    """Block p's edges in input order as (local col, local row) int32."""
-    lc_parts, lr_parts = [], []
-    for u, v in _pieces(edges):
+def _block_edges(edges: torch.Tensor, grid: Grid2D, p: int, vals=None):
+    """Block p's edges in input order as (local col, local row) int32, and
+    their values when `vals` (E,) is given (else None)."""
+    lc_parts, lr_parts, val_parts = [], [], []
+    for a, (u, v) in zip(range(0, edges.shape[1], EDGE_PIECE),
+                         _pieces(edges)):
         mine = _block_of(u, v, grid) == p
         lc_parts.append(local_col(u[mine], grid))
         lr_parts.append(local_row(v[mine], grid))
-    return torch.cat(lc_parts), torch.cat(lr_parts)
+        if vals is not None:
+            val_parts.append(vals[a:a + EDGE_PIECE][mine])
+    return (torch.cat(lc_parts), torch.cat(lr_parts),
+            torch.cat(val_parts) if vals is not None else None)
 
 
 def _fill_sorted(out, key, vals, off):
@@ -130,6 +137,37 @@ def _fill_sorted(out, key, vals, off):
         out[ea:eb] = vs[torch.sort(ks, stable=True).indices]
 
 
+def _partition(edges: torch.Tensor, grid: Grid2D, pad_to, *, by_row: bool,
+               vals=None):
+    """The block-by-block walk shared by the CSC and CSR layouts and their
+    edge values: every block's edges stably sorted by local column
+    (by local row when `by_row`).  Returns (per-block edge counts, offsets
+    (R, C, n_keys + 1) int32, and the sorted payload (R, C, e_max): the
+    other endpoint's local index padded -1, or `vals` (E,) padded 0)."""
+    R, C = grid.R, grid.C
+    n_keys = grid.n_rows_local if by_row else grid.n_cols_local
+    dev = edges.device
+    edges = edges.to(torch.int32)
+    if vals is not None and vals.shape != (edges.shape[1],):
+        raise ValueError(f"{vals.shape[0]} edge values for {edges.shape[1]} "
+                         f"edges")
+    counts, e_max = _block_counts(edges, grid, pad_to)
+    off = torch.zeros((R, C, n_keys + 1), dtype=torch.int32, device=dev)
+    out = torch.full((R, C, e_max), -1, dtype=torch.int32, device=dev) \
+        if vals is None else torch.zeros((R, C, e_max), dtype=vals.dtype,
+                                         device=dev)
+    for i in range(R):
+        for j in range(C):
+            lc, lr, w = _block_edges(edges, grid, i * C + j, vals)
+            key, payload = (lr, lc) if by_row else (lc, lr)
+            off[i, j, 1:] = torch.cumsum(
+                torch.bincount(key, minlength=n_keys), 0)
+            _fill_sorted(out[i, j], key, payload if w is None else w,
+                         off[i, j])
+            del lc, lr, w, key, payload
+    return counts, off, out
+
+
 def partition_2d(edges: torch.Tensor, grid: Grid2D,
                  pad_to: int | None = None) -> LocalGraph2D:
     """Split a directed (2, E) int32 edge list [src u, dst v] among the grid.
@@ -138,22 +176,9 @@ def partition_2d(edges: torch.Tensor, grid: Grid2D,
     The blocks are built on `edges.device`.  Returns stacked
     col_off (R, C, N/C + 1), row_idx (R, C, e_max) padded -1, nnz (R, C).
     """
-    R, C = grid.R, grid.C
-    ncl = grid.n_cols_local
-    dev = edges.device
-    edges = edges.to(torch.int32)
-    counts, e_max = _block_counts(edges, grid, pad_to)
-    col_off = torch.zeros((R, C, ncl + 1), dtype=torch.int32, device=dev)
-    row_idx = torch.full((R, C, e_max), -1, dtype=torch.int32, device=dev)
-    for i in range(R):
-        for j in range(C):
-            p = i * C + j
-            lc, lr = _block_edges(edges, grid, p)
-            col_off[i, j, 1:] = torch.cumsum(
-                torch.bincount(lc, minlength=ncl), 0)
-            _fill_sorted(row_idx[i, j], lc, lr, col_off[i, j])
-            del lc, lr
-    nnz = torch.tensor(counts, dtype=torch.int32, device=dev).reshape(R, C)
+    counts, col_off, row_idx = _partition(edges, grid, pad_to, by_row=False)
+    nnz = torch.tensor(counts, dtype=torch.int32,
+                       device=edges.device).reshape(grid.R, grid.C)
     return LocalGraph2D(col_off=col_off, row_idx=row_idx, nnz=nnz)
 
 
@@ -167,20 +192,26 @@ def partition_2d_csr(edges: torch.Tensor, grid: Grid2D,
     dict(row_off=(R, C, N/R + 1), col_idx=(R, C, e_max) LOCAL columns
     padded -1, nnz=(R, C)), int32.
     """
-    R, C = grid.R, grid.C
-    nrl = grid.n_rows_local
-    dev = edges.device
-    edges = edges.to(torch.int32)
-    counts, e_max = _block_counts(edges, grid, pad_to)
-    row_off = torch.zeros((R, C, nrl + 1), dtype=torch.int32, device=dev)
-    col_idx = torch.full((R, C, e_max), -1, dtype=torch.int32, device=dev)
-    for i in range(R):
-        for j in range(C):
-            p = i * C + j
-            lc, lr = _block_edges(edges, grid, p)
-            row_off[i, j, 1:] = torch.cumsum(
-                torch.bincount(lr, minlength=nrl), 0)
-            _fill_sorted(col_idx[i, j], lr, lc, row_off[i, j])
-            del lc, lr
-    nnz = torch.tensor(counts, dtype=torch.int32, device=dev).reshape(R, C)
+    counts, row_off, col_idx = _partition(edges, grid, pad_to, by_row=True)
+    nnz = torch.tensor(counts, dtype=torch.int32,
+                       device=edges.device).reshape(grid.R, grid.C)
     return dict(row_off=row_off, col_idx=col_idx, nnz=nnz)
+
+
+def partition_edge_vals(edges: torch.Tensor, vals: torch.Tensor,
+                        grid: Grid2D, pad_to: int | None = None):
+    """Per-edge values laid out in `partition_2d`'s CSC order.
+
+    vals: (E,) tensor aligned with the `edges` columns, on their device
+    (uint8 weights for SSSP).  Returns (R, C, e_max) of vals' dtype, padded
+    0: entry [i, j, k] is the value of the edge `partition_2d` put at
+    row_idx[i, j, k] -- the same walk with the values as the payload, so
+    the order equals the JAX `np.lexsort((lc, dev))` by construction."""
+    return _partition(edges, grid, pad_to, by_row=False, vals=vals)[2]
+
+
+def partition_edge_vals_csr(edges: torch.Tensor, vals: torch.Tensor,
+                            grid: Grid2D, pad_to: int | None = None):
+    """Per-edge values laid out in `partition_2d_csr`'s CSR order (the
+    direction-optimised SSSP pulls over this copy)."""
+    return _partition(edges, grid, pad_to, by_row=True, vals=vals)[2]

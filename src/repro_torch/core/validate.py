@@ -1,6 +1,7 @@
 """Graph500 BFS output validation + TEPS accounting (paper sec. 4), the
 port of `repro/core/validate.py` on torch tensors, so the rules run where
-the graph lives.
+the graph lives; and the checks of connected components and SSSP outputs
+(`validate_cc`, `validate_sssp`), tensor passes over the same edge list.
 
 Checks (on the global (level, pred) result and the input edge list):
   1. root: level[root] == 0 and pred[root] == root;
@@ -104,6 +105,46 @@ def validate_bfs(edges, level, pred, root: int, index: EdgeIndex = None):
                "graph edge spans > 1 level")
         _check(not ((lu >= 0) ^ (lv >= 0)).any(),
                "edge joins visited and unvisited (incomplete BFS)")
+
+
+def validate_cc(edges, labels):
+    """Raise AssertionError on a connected-components labelling that breaks
+    a rule that every min-label fixpoint keeps: on a symmetrised edge list
+    both endpoints of every edge carry one label; label[v] <= v; and
+    label[label[v]] == label[v] (the label is a vertex labelled by itself).
+    labels: (n,) tensor on the edges' device."""
+    n = labels.shape[0]
+    lab = labels.long()
+    _check(((lab >= 0) & (lab <= torch.arange(n, device=lab.device))).all(),
+           "a label above its vertex (or negative)")
+    _check((lab[lab] == lab).all(), "label[label[v]] != label[v]")
+    for u, v in _pieces(edges):
+        _check((lab[u] == lab[v]).all(), "an edge joins two labels")
+
+
+def validate_sssp(edges, weights, dist, root: int):
+    """Raise AssertionError on shortest distances that break a rule of
+    single-source shortest paths over non-negative weights: dist[root] ==
+    0; an edge's endpoints are both reached or both unreached (the list is
+    symmetrised); dist[v] <= dist[u] + w on every reached edge u -> v; and
+    every reached v != root has an in-edge with equality.  dist: (n,)
+    tensor, -1 = unreached; weights: (E,) aligned with edges."""
+    n = dist.shape[0]
+    _check(dist[root] == 0, f"dist[root]={int(dist[root])}")
+    d = dist.long()
+    tight = torch.zeros(n, dtype=torch.bool, device=dist.device)
+    tight[root] = True
+    for a, (u, v) in zip(range(0, edges.shape[1], EDGE_PIECE),
+                         _pieces(edges)):
+        du, dv = d[u], d[v]
+        _check(((du >= 0) == (dv >= 0)).all(),
+               "an edge joins reached and unreached vertices")
+        via = du + weights[a:a + EDGE_PIECE].long()
+        reached = du >= 0
+        _check((dv <= via)[reached].all(), "dist[v] > dist[u] + w on an edge")
+        tight[v[reached & (dv == via)]] = True
+    _check((tight | (d < 0)).all(),
+           "a reached vertex with no tight in-edge")
 
 
 def count_component_edges(edges, level) -> int:

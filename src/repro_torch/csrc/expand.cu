@@ -85,7 +85,65 @@ __global__ void expand_chunk_kernel(
   won_out[t] = unvisited && !dup;
 }
 
+
+// Value-carrying twin (CC / SSSP / multi-source BFS).
+//
+// Replaces: the Pallas kernel src/repro/kernels/expand.py:
+// expand_chunk_values (`_value_expand_kernel`).  Stages 1 and 2 as above,
+// no visited filter; per lane it writes
+//   v    as above,
+//   pay  = payload[k]                  (the frontier value carried along)
+//   addr = clip(col_off[u] + gid - cumul[k], 0, nnz_cap - 1)
+//                                      (the CSC address, for edge values)
+//   valid = gid < cumul[front_total].
+// One thread per lane, 256 to a block: there is no tile stage, so the chunk
+// length need not divide into tiles.  What bounds it: bytes, as for
+// expand_chunk (one row_idx gather and 13 B written per lane).
+__global__ void expand_chunk_values_kernel(
+    int start, int n_lanes, const int* __restrict__ cumul,
+    const int* __restrict__ front, const int* __restrict__ payload, int ncl,
+    const int* __restrict__ front_total, const int* __restrict__ col_off,
+    const int* __restrict__ row_idx, long long nnz_cap,
+    int* __restrict__ v_out, int* __restrict__ pay_out,
+    int* __restrict__ addr_out, unsigned char* __restrict__ valid_out) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_lanes) return;
+  const int gid = start + (int)t;
+  const int ft = *front_total;
+  const int total = cumul[ft];
+
+  int lo = 0, hi = ft + 1;
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    if (cumul[mid] <= gid) lo = mid; else hi = mid;
+  }
+  const int k = min(lo, ncl - 1);
+  const int u = min(max(front[k], 0), ncl - 1);
+  const int addr =
+      (int)((unsigned)col_off[u] + (unsigned)gid - (unsigned)cumul[k]);
+  const bool live = gid < total;
+  const long long a = min(max((long long)addr, 0LL), nnz_cap - 1);
+
+  v_out[t] = live ? row_idx[a] : 0;
+  pay_out[t] = payload[k];
+  addr_out[t] = (int)a;
+  valid_out[t] = live;
+}
+
 }  // namespace
+
+extern "C" int expand_chunk_values_launch(
+    int start, int n_lanes, const int* cumul, const int* front,
+    const int* payload, int ncl, const int* front_total, const int* col_off,
+    const int* row_idx, long long nnz_cap, int* v_out, int* pay_out,
+    int* addr_out, unsigned char* valid_out, void* stream) {
+  constexpr int kThreads = 256;
+  const unsigned blocks = (unsigned)((n_lanes + kThreads - 1) / kThreads);
+  expand_chunk_values_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      start, n_lanes, cumul, front, payload, ncl, front_total, col_off,
+      row_idx, nnz_cap, v_out, pay_out, addr_out, valid_out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int expand_chunk_launch(
     int start, int n_lanes, int tile, const int* cumul, const int* front,

@@ -17,10 +17,16 @@ encode and decode on every fold.  CUDA tensors launch `csrc/bits.cu`; CPU
 tensors run `plain_pack_bits` / `plain_unpack_bits`
 (`core.frontier.pack_bitmap` / `unpack_bitmap`).
 
+`delta_gaps` / `delta_positions` are the delta codec's encode and decode
+stages: sorted per-row offsets -> 16-bit first-order gaps, and gaps ->
+int32 per-row inclusive cumsum.  The 16-bit arrays are int16 tensors
+holding the JAX uint16 bit pattern (`core.frontier.u16_bits`).  CUDA
+tensors launch `csrc/delta.cu`; CPU tensors run `plain_delta_gaps` /
+`plain_delta_positions`.
+
 The module itself is the engines' fold-kernel bundle (`ops`): call sites
-write `ops.compact_rows(...)`, `ops.pack_bits(...)`, and `ops=None` means
-the plain formulas.  The delta codec's kernels (`delta_gaps`,
-`delta_positions`) come with that codec (ROADMAP A8).
+write `ops.compact_rows(...)`, `ops.pack_bits(...)`, `ops.delta_gaps(...)`,
+and `ops=None` means the plain formulas.
 """
 from __future__ import annotations
 
@@ -200,3 +206,87 @@ def unpack_bits(words, S: int):
 
 
 unpack_bits.launches = 0
+
+
+def plain_delta_gaps(ts, valid):
+    """(N, S) int32 offsets + bool valid -> (N, S) int16 uint16 gaps in
+    plain torch: valid ? ts[s] - ts[s - 1] : 0, ts[-1] = 0."""
+    prev = torch.cat([torch.zeros_like(ts[:, :1]), ts[:, :-1]], dim=1)
+    return F.u16_bits(torch.where(valid, ts - prev, 0))
+
+
+def plain_delta_positions(gaps):
+    """(N, S) int16 uint16 gaps -> (N, S) int32 per-row inclusive cumsum in
+    plain torch."""
+    return torch.cumsum(F.u16_values(gaps), dim=1, dtype=torch.int32)
+
+
+def _delta_launcher(name):
+    fn = getattr(build.library("delta"), f"{name}_launch")
+    if fn.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, p, i64, i64, p] if name == "delta_gaps" \
+            else [p, p, i64, i64, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def delta_gaps(ts, valid):
+    """Sorted per-row offsets -> first-order gaps, slot 0 absolute, invalid
+    slots 0: (N, S) int32 + (N, S) bool -> (N, S) int16 holding the uint16
+    pattern.  The inputs are checked on every device; then CUDA tensors
+    launch the kernel (counted in `delta_gaps.launches`) and CPU tensors run
+    the plain version."""
+    if ts.dim() != 2 or ts.dtype != torch.int32 or not ts.is_contiguous() \
+            or valid.shape != ts.shape or valid.dtype != torch.bool \
+            or not valid.is_contiguous() or valid.device != ts.device:
+        raise ValueError(f"delta_gaps: ts must be a contiguous (N, S) int32 "
+                         f"tensor and valid a bool one of its shape on its "
+                         f"device, got {ts.dtype} {tuple(ts.shape)}, "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+    if not launches_kernel(ts, "delta_gaps"):
+        return plain_delta_gaps(ts, valid)
+    N, S = ts.shape
+    if N > 65535:
+        raise ValueError(f"delta_gaps: {N} rows exceed the grid's 65535")
+    gaps = torch.empty((N, S), dtype=torch.int16, device=ts.device)
+    if gaps.numel() == 0:
+        return gaps
+    with torch.cuda.device(ts.device):
+        stream = torch.cuda.current_stream(ts.device).cuda_stream
+        rc = _delta_launcher("delta_gaps")(ts.data_ptr(), valid.data_ptr(),
+                                           gaps.data_ptr(), N, S, stream)
+    build.check(rc, "delta_gaps")
+    delta_gaps.launches += 1
+    return gaps
+
+
+delta_gaps.launches = 0
+
+
+def delta_positions(gaps):
+    """(N, S) int16 uint16 gaps -> (N, S) int32 per-row inclusive cumsum
+    (the gaps read as unsigned, the sum wrapping as int32).  The input is
+    checked on every device; then CUDA tensors launch the kernel (counted in
+    `delta_positions.launches`) and CPU tensors run the plain version."""
+    if gaps.dim() != 2 or gaps.dtype != torch.int16 \
+            or not gaps.is_contiguous():
+        raise ValueError(f"delta_positions: gaps must be a contiguous "
+                         f"(N, S) int16 tensor, got {gaps.dtype} "
+                         f"{tuple(gaps.shape)}")
+    if not launches_kernel(gaps, "delta_positions"):
+        return plain_delta_positions(gaps)
+    N, S = gaps.shape
+    pos = torch.empty((N, S), dtype=torch.int32, device=gaps.device)
+    if pos.numel() == 0:
+        return pos
+    with torch.cuda.device(gaps.device):
+        stream = torch.cuda.current_stream(gaps.device).cuda_stream
+        rc = _delta_launcher("delta_positions")(gaps.data_ptr(),
+                                                pos.data_ptr(), N, S, stream)
+    build.check(rc, "delta_positions")
+    delta_positions.launches += 1
+    return pos
+
+
+delta_positions.launches = 0

@@ -29,7 +29,6 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("telemetry", True, "A10"), ("fault_tolerance", True, "A11"),
-    ("fold_codec", "delta", "A8"),
     ("exchange", "butterfly", "A9"), ("exchange", "auto", "A9"),
     ("expand_fn", lambda *a: a, "A17"),
 ])

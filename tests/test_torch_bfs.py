@@ -41,6 +41,16 @@ REF_SCRIPT = os.path.join(os.path.dirname(__file__), "dist",
                           "torch_parity_ref.py")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's tensors here are tiny; on a busy machine (a parallel
+    test run) torch's intra-op thread pool only waits for busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def graph_data():
     edges = np.asarray(jax_rmat_edges(jax.random.key(42), SCALE, EF))

@@ -23,6 +23,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.api import BFSConfig as JaxBFSConfig
 from repro.api import DistGraph as JaxDistGraph
@@ -42,6 +43,16 @@ N = 1 << SCALE
 REF_SCRIPT = os.path.join(os.path.dirname(__file__), "dist",
                           "torch_parity_ref.py")
 CONFIGS = [(d, c) for d in (True, "bottomup") for c in ("list", "bitmap")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's tensors here are tiny; on a busy machine (a parallel
+    test run) torch's intra-op thread pool only waits for busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def dtag(direction):

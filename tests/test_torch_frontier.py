@@ -432,8 +432,13 @@ def test_bitmap_fold_values_in_process_1x1(rng):
 
 
 def test_delta_codec_names_its_roadmap_item():
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        X.get_fold_codec("delta", Grid2D(1, 1, 8))
+    """The delta codec is ported (ROADMAP A8): it builds where S <= 65536
+    and otherwise refuses, naming the codecs that work."""
+    assert X.get_fold_codec("delta", Grid2D(1, 1, 1 << 16)).name == "delta"
+    with pytest.raises(ValueError, match=r"S <= 65536.*codecs that do work "
+                                         r"at this block size: \['bitmap', "
+                                         r"'list'\]"):
+        X.get_fold_codec("delta", Grid2D(1, 1, (1 << 16) + 1))
     with pytest.raises(ValueError, match="unknown fold codec"):
         X.get_fold_codec("zip", Grid2D(1, 1, 8))
 

@@ -120,3 +120,84 @@ def test_bits_and_bottomup_equal_plain_on_card(cuda_device, rng):
                 assert KB.bottomup_chunk.launches == n0 + 1
                 for a, b in zip(plain, kern):
                     assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+def test_value_kernels_equal_plain_on_card(cuda_device, rng):
+    """expand_chunk_values and bottomup_chunk_values equal their plain
+    versions, and each launch counts: an empty frontier, total = 0, a chunk
+    straddling the live total."""
+    ncl = 3000
+    for ft in (0, 2000):
+        col_off, row_idx, front, _ = _random_block(rng, ncl, 5000, ft)
+        fr = np.clip(front, 0, ncl - 1)
+        deg = np.where(np.arange(ncl) < ft, col_off[fr + 1] - col_off[fr], 0)
+        cumul = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        pay = rng.integers(0, 2**31 - 1, size=ncl).astype(np.int32)
+        args = [torch.from_numpy(x) for x in (cumul, front, pay)] + [
+            torch.tensor(ft, dtype=torch.int32)] + [
+            torch.from_numpy(x) for x in (col_off, row_idx)]
+        for start, E in ((0, 4096), (max(int(cumul[-1]) - 5, 0), 512)):
+            plain = K.plain_expand_chunk_values(start, E, *args)
+            n0 = K.expand_chunk_values.launches
+            kern = K.expand_chunk_values(start, E,
+                                         *[a.to(cuda_device) for a in args])
+            torch.cuda.synchronize()
+            assert K.expand_chunk_values.launches == n0 + 1
+            for p, k in zip(plain, kern):
+                assert torch.equal(p, k.cpu())
+    block, nrl = 1000, 3000
+    deg = rng.integers(0, 9, size=nrl)
+    row_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col_idx = rng.integers(0, nrl, size=int(row_off[-1]) + 7) \
+        .astype(np.int32)
+    visited = rng.random(nrl) < 0.3
+    dense_pay = torch.from_numpy(
+        rng.integers(0, 2**31 - 1, size=3 * block).astype(np.int32))
+    for frac in (0.0, 0.5, 1.0):
+        words = KF.plain_pack_bits(
+            torch.from_numpy(rng.random((3, block)) < frac)).reshape(-1)
+        for zero in (False, True):
+            cumul = np.concatenate([[0], np.cumsum(
+                np.where(visited | zero, 0, deg))]).astype(np.int32)
+            total = int(cumul[-1])
+            args = [torch.from_numpy(cumul),
+                    torch.tensor(total, dtype=torch.int32),
+                    torch.from_numpy(row_off), torch.from_numpy(col_idx),
+                    words, dense_pay]
+            for start, E in ((0, 4096), (max(total - 100, 0), 512)):
+                plain = KB.plain_bottomup_chunk_values(start, E, *args,
+                                                       block=block)
+                n0 = KB.bottomup_chunk_values.launches
+                kern = KB.bottomup_chunk_values(
+                    start, E, *[a.to(cuda_device) for a in args],
+                    block=block)
+                torch.cuda.synchronize()
+                assert KB.bottomup_chunk_values.launches == n0 + 1
+                for a, b in zip(plain, kern):
+                    assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+def test_delta_kernels_equal_plain_on_card(cuda_device, rng):
+    """delta_gaps and delta_positions equal their plain versions, and each
+    launch counts: all-invalid rows, full rows of S = 65536, S % 32 != 0,
+    a sum that wraps int32."""
+    for N, S, p in ((4, 1 << 16, 1.0), (3, 1 << 16, 0.3), (2, 33, 0.5),
+                    (3, 100, 0.0)):
+        mask = rng.random((N, S)) < p
+        ts = np.where(mask, np.arange(S, dtype=np.int32), 2**31 - 1)
+        ts = np.sort(ts, axis=1).astype(np.int32)
+        valid = np.arange(S)[None, :] < mask.sum(axis=1)[:, None]
+        tt, tv = torch.from_numpy(ts), torch.from_numpy(valid)
+        n0 = (KF.delta_gaps.launches, KF.delta_positions.launches)
+        gaps = KF.delta_gaps(tt.to(cuda_device), tv.to(cuda_device))
+        pos = KF.delta_positions(gaps)
+        torch.cuda.synchronize()
+        assert (KF.delta_gaps.launches, KF.delta_positions.launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        assert torch.equal(gaps.cpu(), KF.plain_delta_gaps(tt, tv))
+        assert torch.equal(pos.cpu(), KF.plain_delta_positions(gaps.cpu()))
+    big = torch.full((2, 40000), -1, dtype=torch.int16)    # gaps of 65535
+    assert torch.equal(KF.delta_positions(big.to(cuda_device)).cpu(),
+                       KF.plain_delta_positions(big))
