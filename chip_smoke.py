@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two session paths once on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's two session paths and its kernel-stage surface
+once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--scale 26] [--roots 64] [--td-roots 16]
                           [--batch 8] [--dir-batch 4] [--sssp-roots 4]
@@ -34,6 +34,27 @@ Phases, one line or more each on stdout:
   3b. parity   B1 and B2 again on one real chunk and one real expand-
                exchange row captured from that run, with their time (CUDA
                events) beside their plain versions' and their bytes bound;
+  12. stages   right after 3b, on the same real chunk and resident graph:
+               (a) B10 binsearch_map and B11 visited_filter against their
+               plain versions, bit for bit, on random inputs (zero-degree
+               runs in cumul, front_total = 0, chunks straddling the live
+               total, n_cumul < 256, lanes below cumul[0], tiles 64, 256,
+               512 and 1024, n_rows % 32 != 0, all-visited and all-clear
+               words, all-invalid lanes); then, with the counts at 0, the
+               surface through its entry points: (b) on the real 2^22-lane
+               chunk, front[binsearch_map(clip_cumul(cumul), gids)] equals
+               B1's u and visited_filter(v, valid, words, tile=512) equals
+               B1's won on every lane; (c) `local_expand(path="kernel")`
+               equals path="reference" on all five fields over block (0, 0),
+               the frontier being phase 4's first root's local columns at
+               its most populous level, both timed; (d) one root with
+               `BFSConfig(expand_fn=make_expand_fn(path="kernel"))` equals
+               phase 4 (levels, preds, n_levels, edges_scanned) and B1
+               launches through the hook; (e) `scripts/torch_kernel_bench.
+               py`'s rows, printed as one {"kernel_bench": [...]} line;
+               B10 and B11 launched (> 0); then both on the real chunk:
+               equal to their plain versions, time, plain time, bytes
+               bound, and for B10 the time of torch.searchsorted;
   5. path      one root again with expand="reference", fold="reference":
                levels, preds, n_levels and edges_scanned equal the kernel
                path's;
@@ -329,10 +350,12 @@ def counters():
     from repro_torch.kernels import bottomup as KB
     from repro_torch.kernels import expand as K
     from repro_torch.kernels import fold as KF
+    from repro_torch.kernels import stages as S
     return {f.__name__: f for f in (
         K.expand_chunk, K.expand_chunk_values, KF.compact_rows, KF.pack_bits,
         KF.unpack_bits, KF.delta_gaps, KF.delta_positions,
-        KB.bottomup_chunk, KB.bottomup_chunk_values)}
+        KB.bottomup_chunk, KB.bottomup_chunk_values, S.binsearch_map,
+        S.visited_filter)}
 
 
 def zero_counts() -> None:
@@ -365,14 +388,15 @@ def run_values(torch, args, graph, edges, weights, td_roots, scalar,
     sess = graph.session(BFSConfig(grid=(grid.R, grid.C),
                                    edge_chunk=args.edge_chunk))
     eng = sess._algo_engine(ConnectedComponentsProgram(), None, grid.n + 1)
-    assert eng.value_expand_fn is K.expand_chunk_values
+    hook = eng.value_expand_fn
+    assert eng.expand_path == "kernel" and hook is not None
     # 9b: keep one chunk of CC's first level (full frontier, start > 0)
-    tap = Tap(K.expand_chunk_values, lambda k, a: a[0] > 0)
+    tap = Tap(hook, lambda k, a: a[0] > 0)
     eng.value_expand_fn = tap
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     cc, cc_s = timed(torch, sess.connected_components)
-    eng.value_expand_fn = K.expand_chunk_values
+    eng.value_expand_fn = hook
     cc_launches = read_counts()
     labels = cc.labels[:n]
     t0 = time.perf_counter()
@@ -516,8 +540,9 @@ def run_values_direction(torch, args, graph, vals, kernels, report, phases):
                  direction=True, fold_codec="bitmap")
     dsess = graph.session(BFSConfig(**knobs))
     eng = dsess._algo_engine(ConnectedComponentsProgram(), None, grid.n + 1)
-    assert eng.value_bottomup_fn is KB.bottomup_chunk_values
-    tap = Tap(KB.bottomup_chunk_values, lambda k, a: a[0] > 0)
+    hook = eng.value_bottomup_fn
+    assert eng.bottomup_path == "kernel" and hook is not None
+    tap = Tap(hook, lambda k, a: a[0] > 0)
     eng.value_bottomup_fn = tap
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -527,7 +552,7 @@ def run_values_direction(torch, args, graph, vals, kernels, report, phases):
         return "".join("TB"[x] for x in d[d >= 0].tolist())
 
     cc, cc_s = timed(torch, dsess.connected_components)
-    eng.value_bottomup_fn = KB.bottomup_chunk_values
+    eng.value_bottomup_fn = hook
     trace = {"cc": bottomup_levels(cc)}
     if not same(torch, (cc.labels, int(cc.n_iters)), vals["cc"][:2]):
         raise AssertionError("direction-optimised CC differs from top-down")
@@ -763,6 +788,208 @@ def run_delta(torch, dev, args, kernels, report, phases):
     phases.end("11 delta")
 
 
+def parity_random_stages(torch, dev, gen, F, S) -> None:
+    """Phase 12a: B10 and B11 against their plain versions on random
+    inputs, bit for bit, at tiles 64, 256, 512 and 1024."""
+    tiles = (64, 256, 512, 1024)
+    for n_seg, shift in ((100, 0), (100, 5), (1 << 20, 0)):
+        deg = torch.randint(0, 9, (n_seg,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        deg[n_seg // 4:n_seg // 2] = 0          # a zero-degree run
+        cumul = F.exclusive_cumsum(deg) + shift  # shift: lanes < cumul[0]
+        err, calls = 0, 0
+        for ft in (0, n_seg // 3, n_seg):
+            cc = S.clip_cumul(cumul, ft)
+            total = int(cumul[ft])
+            for tile in tiles:
+                E = max(4 * tile, min(1 << 20, 64 * n_seg))
+                E -= E % tile
+                for start in (0, max(total - E // 2, 0)):   # straddles
+                    gids = start + torch.arange(E, dtype=torch.int32,
+                                                device=dev)
+                    err += check_equal(
+                        torch, "binsearch_map",
+                        (S.binsearch_map(cc, gids, tile=tile),),
+                        (S.map_workload(gids, cc),))
+                    calls += 1
+        log(f"[12 stages] binsearch_map random n_cumul {n_seg + 1} (cumul "
+            f"+ {shift}, a zero-degree run), front_total 0 / n/3 / n, "
+            f"tiles {tiles}, chunks from 0 and straddling the live total: "
+            f"{calls} calls, max_abs_err {err}")
+    n_rows = (1 << 21) + 5                      # n_rows % 32 != 0
+    nw = (n_rows + 31) // 32
+    E = 1 << 20
+    for words_kind in ("random", "all visited", "all clear"):
+        if words_kind == "random":
+            words = torch.randint(-2**31, 2**31 - 1, (nw,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+        else:
+            words = torch.full((nw,), -1 if words_kind == "all visited"
+                               else 0, dtype=torch.int32, device=dev)
+        err, calls = 0, 0
+        for tile in tiles:
+            for p_valid, span in ((0.7, n_rows), (0.7, 2 * tile // 3),
+                                  (0.0, n_rows)):
+                v = torch.randint(0, span, (E,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+                valid = torch.rand(E, generator=gen, device=dev) < p_valid
+                err += check_equal(
+                    torch, "visited_filter",
+                    (S.visited_filter(v, valid, words, tile=tile),),
+                    (S.filter_tile(v, valid, words, tile),))
+                calls += 1
+        log(f"[12 stages] visited_filter random {words_kind} words, n_rows "
+            f"{n_rows}, tiles {tiles}, valid 0.7 / all invalid, distinct / "
+            f"duplicated vertices: {calls} calls, max_abs_err {err}")
+    torch.cuda.synchronize()
+
+
+def run_stages(torch, args, graph, roots, scalar, chunk, b1, kernels,
+               report, phases):
+    """Phase 12: the kernel-stage surface on the resident SCALE 26 graph.
+    chunk: the real chunk phase 3b held B1 to, (start, E, cumul, front,
+    front_total, col_off, row_idx, words); b1: B1's (v, won, u) on it."""
+    from repro_torch.api import BFSConfig
+    from repro_torch.core import frontier as F
+    from repro_torch.core.partition import global_from_row
+    from repro_torch.kernels import expand as K
+    from repro_torch.kernels import stages as S
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_kernel_bench
+
+    dev = graph.device
+    grid = graph.grid
+    n = graph.n
+    parity_random_stages(torch, dev, torch.Generator(device=dev).manual_seed(
+        args.seed + 12), F, S)
+
+    # -- the surface driven once, through its entry points ------------------
+    zero_counts()
+    start, E, cumul, front, ftot, col_off, row_idx, words = chunk
+    v1, won1, u1 = b1
+    ncl = front.shape[0]
+    gids = start + torch.arange(E, dtype=torch.int32, device=dev)
+    cc = S.clip_cumul(cumul, ftot)
+    k = S.binsearch_map(cc, gids)
+    valid = gids < cumul[ftot]
+    won = S.visited_filter(v1, valid, words, tile=512)
+    if not torch.equal(front.clamp(0, ncl - 1)[k.clamp(0, ncl - 1)], u1):
+        raise AssertionError("front[binsearch_map] differs from B1's u on "
+                             "the real chunk")
+    if not torch.equal(won, won1):
+        raise AssertionError("visited_filter differs from B1's won on the "
+                             "real chunk")
+    log(f"[12 stages] real chunk start={start} E={E} (SCALE {args.scale}): "
+        f"front[binsearch_map] equals B1's u and visited_filter(tile=512) "
+        f"equals B1's won on every lane ({int(won.sum())} winners)")
+
+    # local_expand over block (0, 0) at the root's most populous level
+    level = scalar[0][0][:n].to(dev)
+    L = int(torch.bincount(level[level >= 0].long()).argmax())
+    cols = torch.nonzero(level[:grid.n_cols_local] == L).flatten() \
+        .to(torch.int32)
+    lr = torch.arange(grid.n_rows_local, device=dev)
+    row_level = level[global_from_row(lr, 0, grid)]
+    visited = (row_level >= 0) & (row_level < L)
+    csc = (graph.csc.col_off[0, 0], graph.csc.row_idx[0, 0])
+    b1_before = K.expand_chunk.launches
+    kout, k_s = timed(torch, lambda: K.local_expand(
+        (cols, cols.numel()), csc, visited, path="kernel",
+        edge_chunk=args.edge_chunk))
+    b1_local = K.expand_chunk.launches - b1_before
+    rout, r_s = timed(torch, lambda: K.local_expand(
+        (cols, cols.numel()), csc, visited, path="reference",
+        edge_chunk=args.edge_chunk))
+    for f in ("verts", "parents", "count", "visited", "edges_scanned"):
+        if not torch.equal(getattr(kout, f), getattr(rout, f)):
+            raise AssertionError(f"local_expand kernel path differs from "
+                                 f"reference on {f}")
+    log(f"[12 stages] local_expand block (0, 0), root {roots[0]} level {L}: "
+        f"{cols.numel()} frontier cols, {int(visited.sum())} rows visited "
+        f"before, {int(kout.edges_scanned)} edges, {int(kout.count)} "
+        f"discoveries; kernel path {k_s:.4f} s ({b1_local} B1 launches), "
+        f"reference {r_s:.4f} s, equal on all five fields")
+    del kout, rout, visited, row_level, lr, cols
+
+    # the custom chunk hook (A17): one root through make_expand_fn
+    hook_cfg = BFSConfig(grid=(grid.R, grid.C), edge_chunk=args.edge_chunk,
+                         expand_fn=K.make_expand_fn(path="kernel"))
+    hsess = graph.session(hook_cfg)
+    assert hsess.engine.expand_path == "custom" \
+        and hsess.engine.value_expand_fn is None
+    b1_before = K.expand_chunk.launches
+    out, hook_s = timed(torch, lambda: hsess.bfs(roots[0]))
+    b1_hook = K.expand_chunk.launches - b1_before
+    lv, pr, nl, es = scalar[0]
+    if not same(torch, (out.level, out.pred, int(out.n_levels),
+                        out.edges_scanned), (lv, pr, nl, es)):
+        raise AssertionError("BFSConfig(expand_fn=make_expand_fn()) differs "
+                             "from phase 4")
+    if b1_hook <= 0:
+        raise AssertionError("the custom hook launched no B1")
+    log(f"[12 stages] BFSConfig(expand_fn=make_expand_fn(path='kernel')) "
+        f"root {roots[0]}: equal to phase 4 (levels, preds, n_levels "
+        f"{nl}, edges_scanned {es}), {hook_s:.3f} s, {b1_hook} B1 launches "
+        f"through the hook")
+    graph._engines.pop(hook_cfg.engine_key)
+    del out, hsess
+
+    bench_rows = torch_kernel_bench.run(dev)
+    launches = read_counts()
+    log(json.dumps({"kernel_bench": bench_rows}))
+    log(f"[12 stages] launches over the surface's run {launches}")
+    require_launched(launches, ("binsearch_map", "visited_filter",
+                                "expand_chunk"), "the kernel-stage surface")
+    report["stages"] = {"level": L, "local_expand_kernel_s": k_s,
+                        "local_expand_reference_s": r_s,
+                        "local_expand_b1_launches": b1_local,
+                        "hook_bfs_s": hook_s, "hook_b1_launches": b1_hook,
+                        "kernel_bench": bench_rows, "launches": launches}
+
+    # -- B10 and B11 on the real chunk: parity, time, bound ------------------
+    err = check_equal(torch, "binsearch_map on the real chunk", (k,),
+                      (S.map_workload(gids, cc),))
+    k_first, k_last = int(k[0]), int(k[-1])
+    # gid in and k out per lane + each spanned cumul slot
+    m_bytes = 8 * E + 4 * (k_last - k_first + 1)
+    m_ms = cuda_ms(torch, lambda: S.binsearch_map(cc, gids))
+    m_plain = cuda_ms(torch, lambda: S.map_workload(gids, cc),
+                      reps=3)
+    m_lib = cuda_ms(torch, lambda: torch.searchsorted(cc, gids, right=True,
+                                                      out_int32=True))
+    kernels.append(kernel_row(
+        "binsearch_map", "src/repro_torch/csrc/stages.cu",
+        "src/repro/kernels/_binsearch_map.py:100",
+        launches["binsearch_map"], err, m_ms, m_plain, m_bytes,
+        library_ms=m_lib))
+    log(f"[12 stages] binsearch_map real chunk E={E} cumul slots "
+        f"{k_last - k_first + 1}: max_abs_err {err}; kernel {m_ms:.4f} ms, "
+        f"plain {m_plain:.4f} ms, torch.searchsorted (without the -1) "
+        f"{m_lib:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms "
+        f"({m_bytes} B)")
+    err = check_equal(torch, "visited_filter on the real chunk", (won,),
+                      (S.filter_tile(v1, valid, words, 512),))
+    n_words = int(torch.unique(v1[valid] >> 5).numel())
+    # v, valid in and won out per lane + each distinct visited word
+    f_bytes = 6 * E + 4 * n_words
+    f_ms = cuda_ms(torch, lambda: S.visited_filter(v1, valid, words,
+                                                   tile=512))
+    f_plain = cuda_ms(torch, lambda: S.filter_tile(v1, valid, words, 512),
+                      reps=3)
+    kernels.append(kernel_row(
+        "visited_filter", "src/repro_torch/csrc/stages.cu",
+        "src/repro/kernels/_visited_filter.py:46",
+        launches["visited_filter"], err, f_ms, f_plain, f_bytes))
+    log(f"[12 stages] visited_filter real chunk E={E} tile 512, valid "
+        f"{int(valid.sum())}, distinct words {n_words}: max_abs_err {err}; "
+        f"kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
+        f"{kernels[-1]['bound_ms']:.4f} ms ({f_bytes} B)")
+    report["stages"].update(binsearch_ms=m_ms, binsearch_plain_ms=m_plain,
+                            searchsorted_ms=m_lib, filter_ms=f_ms,
+                            filter_plain_ms=f_plain)
+    phases.end("12 stages")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=26)
@@ -919,7 +1146,8 @@ def main() -> int:
     assert eng.expand_path == "kernel" and eng.fold_path == "kernel"
 
     # warm-up search through taps that keep one real chunk / exchange row
-    expand_tap = Tap(eng.expand_fn, lambda k, a: a[0] > 0, copy=(7,))
+    expand_hook = eng.expand_fn
+    expand_tap = Tap(expand_hook, lambda k, a: a[0] > 0, copy=(7,))
     compact_tap = Tap(KF.compact_rows, lambda k, a: k == 2 * C + 1)
 
     class TappedFold:
@@ -930,7 +1158,7 @@ def main() -> int:
     sess.bfs(roots[0])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    eng.expand_fn, eng.fold_ops = K.expand_chunk, KF
+    eng.expand_fn, eng.fold_ops = expand_hook, KF
     log(f"[4 run] warm-up search {warm_s:.2f} s (taps: {expand_tap.calls} "
         f"chunks, {compact_tap.calls} exchange rows)")
 
@@ -1007,8 +1235,8 @@ def main() -> int:
     # -- 3b. parity and time on real main-path inputs ------------------------
     kernels = []
     (start, E, *eargs), ekw = expand_tap.saved
-    kern = K.expand_chunk(start, E, *eargs, **ekw)
-    err = check_equal(torch, "expand_chunk on the real chunk", kern,
+    b1_out = K.expand_chunk(start, E, *eargs, **ekw)
+    err = check_equal(torch, "expand_chunk on the real chunk", b1_out,
                       K.plain_expand_chunk(start, E, *eargs, **ekw))
     cumul, front, ftot, col_off, row_idx, words = eargs
     live = int((start + torch.arange(E, device=dev) < cumul[ftot]).sum())
@@ -1021,7 +1249,7 @@ def main() -> int:
                                                device=dev,
                                                dtype=torch.int32),
                                   right=True)) - 1
-    v = kern[0]
+    v = b1_out[0]
     n_words = int(torch.unique(v[:live] >> 5).numel())
     # row_idx + the touched cumul/front/col_off entries + visited words in,
     # v/u/won out
@@ -1056,8 +1284,13 @@ def main() -> int:
     log(f"[3b parity] compact_rows real exchange row N={N} S={S} valid "
         f"{int(kern[1].sum())}: max_abs_err {err}; kernel {c_ms:.4f} ms, "
         f"plain {c_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
-    del expand_tap, compact_tap, eargs, kern, plain, v, mask, arrays
+    del expand_tap, compact_tap, kern, plain, v, mask, arrays
     phases.end("3b parity")
+
+    # -- 12. the kernel-stage surface on the real chunk and graph ------------
+    run_stages(torch, args, graph, roots, scalar, (start, E, *eargs), b1_out,
+               kernels, report, phases)
+    del eargs, b1_out
 
     # -- 5. whole-path parity: the plain path on the card --------------------
     ref_sess = graph.session(BFSConfig(grid=(R, C),
@@ -1100,7 +1333,8 @@ def main() -> int:
     deng = dsess.engine
     assert deng.bottomup_path == "kernel" and deng.codec.name == "bitmap"
 
-    bu_tap = Tap(deng.bottomup_fn, lambda k, a: a[0] > 0)
+    bu_hook = deng.bottomup_fn
+    bu_tap = Tap(bu_hook, lambda k, a: a[0] > 0)
     pack_tap = Tap(KF.pack_bits, lambda k, a: k == 3)
     unpack_tap = Tap(KF.unpack_bits, lambda k, a: k == 3)
 
@@ -1115,7 +1349,7 @@ def main() -> int:
     dsess.bfs(roots[0])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    deng.bottomup_fn = KB.bottomup_chunk
+    deng.bottomup_fn = bu_hook
     deng.fold_ops = deng.codec.ops = KF
     log(f"[7 dir-run] warm-up search {warm_s:.2f} s (taps: {bu_tap.calls} "
         f"bottom-up chunks, {pack_tap.calls} packs, {unpack_tap.calls} "

@@ -34,8 +34,13 @@ class FrontierEngine:
     max_levels: loop bound fed to `program.keep_going`.
     expand:     "auto" | "kernel" | "reference": the chunk scan through the
                 CUDA `expand_chunk` kernel (`expand_chunk_values` for the
-                value programs) or the plain torch formulas
-                (`kernels/select.py`).
+                value programs), hooked in through `kernels.expand.
+                make_expand_fn` / `make_value_expand_fn`, or the plain
+                torch formulas (`kernels/select.py`).
+    expand_fn:  a custom chunk hook for the top-down BFS scan (signature of
+                `make_expand_fn`'s hooks); it wins over `expand`, sets
+                `expand_path = "custom"`, and leaves the value programs on
+                the plain value scan.
     fold:       the same spellings for the fold kernels (`compact_rows`,
                 the bitmap codec's `pack_bits` / `unpack_bits`, the delta
                 codec's `delta_gaps` / `delta_positions`).
@@ -43,13 +48,14 @@ class FrontierEngine:
     bottomup:   the same spellings for the bottom-up chunk scan
                 (`bottomup_chunk`, `bottomup_chunk_values`); consulted only
                 by programs that declare `uses_bottomup` (the
-                direction-optimising wrapper).
+                direction-optimising wrapper), through `kernels.bottomup.
+                make_bottomup_fn` / `make_value_bottomup_fn`.
     exchange:   fold exchange strategy ("flat").
     """
 
     def __init__(self, topo, program, *, fold_codec=None,
                  edge_chunk: int = 8192, max_levels: int = 64,
-                 expand: str = "auto", fold: str = "auto",
+                 expand: str = "auto", expand_fn=None, fold: str = "auto",
                  dedup: str = "scatter", bottomup: str = "auto",
                  exchange: str = "flat"):
         if edge_chunk < 1:
@@ -62,20 +68,29 @@ class FrontierEngine:
         self.max_levels = int(max_levels)
         self.dedup = dedup
         self.exchange = get_exchange(exchange, topo.grid)
-        self.expand_path = resolve_path(expand, self.device, knob="expand")
         self.fold_path = resolve_path(fold, self.device, knob="fold")
         self.bottomup_path = resolve_path(bottomup, self.device,
                                           knob="bottomup")
-        expand_k = self.expand_path == "kernel"
-        self.expand_fn = expand_kernels.expand_chunk if expand_k else None
-        self.value_expand_fn = (expand_kernels.expand_chunk_values
-                                if expand_k else None)
+        # a custom hook wins over `expand`; the value programs then run the
+        # plain value scan (JAX's precedence)
+        self.value_expand_fn = None
+        if expand_fn is not None:
+            self.expand_path = "custom"
+        else:
+            self.expand_path = resolve_path(expand, self.device,
+                                            knob="expand")
+            if self.expand_path == "kernel":
+                expand_fn = expand_kernels.make_expand_fn(path="kernel")
+                self.value_expand_fn = expand_kernels.make_value_expand_fn(
+                    path="kernel")
+        self.expand_fn = expand_fn
         self.fold_ops = fold_kernels if self.fold_path == "kernel" else None
-        bottomup_k = program.uses_bottomup and self.bottomup_path == "kernel"
-        self.bottomup_fn = (bottomup_kernels.bottomup_chunk
-                            if bottomup_k else None)
-        self.value_bottomup_fn = (bottomup_kernels.bottomup_chunk_values
-                                  if bottomup_k else None)
+        self.bottomup_fn = self.value_bottomup_fn = None
+        if program.uses_bottomup and self.bottomup_path == "kernel":
+            self.bottomup_fn = bottomup_kernels.make_bottomup_fn(
+                path="kernel")
+            self.value_bottomup_fn = \
+                bottomup_kernels.make_value_bottomup_fn(path="kernel")
         self.codec = get_fold_codec(
             fold_codec if fold_codec is not None else program.codec_hint,
             topo.grid, ops=self.fold_ops)

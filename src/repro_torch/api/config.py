@@ -13,7 +13,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.core.types import Grid2D
-from repro_torch.kernels.select import PATHS
+from repro_torch.kernels.select import check_path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +38,13 @@ class BFSConfig:
     alpha, beta: enter bottom-up above n / alpha frontier vertices, leave
                  it below n / beta.
     bottomup:    "auto" | "kernel" | "reference" for the bottom-up scan.
+    expand_fn:   a custom chunk hook for the top-down scan, with the
+                 signature of `kernels.expand.make_expand_fn`'s hooks;
+                 it wins over `expand`, and the value programs then run
+                 the plain value scan (as in JAX).
     telemetry: ROADMAP A10; fault_tolerance, ckpt_every: ROADMAP A11;
-    expand_fn: a custom chunk hook (ROADMAP A17); row_axes / col_axes name
-    mesh axes, which the stacked grid does not use.
+    row_axes / col_axes name mesh axes, which the stacked grid does not
+    use.
     """
     grid: Any = None
     fold_codec: Any = "list"
@@ -71,7 +75,6 @@ class BFSConfig:
             ("telemetry", bool(self.telemetry), "A10"),
             ("fault_tolerance", bool(self.fault_tolerance), "A11"),
             ("exchange", self.exchange != "flat", "A9"),
-            ("expand_fn", self.expand_fn is not None, "A17"),
         )
         for knob, asked, item in unsupported:
             if asked:
@@ -79,9 +82,7 @@ class BFSConfig:
                     f"BFSConfig({knob}={getattr(self, knob)!r}) is not "
                     f"ported to repro_torch yet (ROADMAP {item})")
         for knob in ("expand", "fold", "bottomup"):
-            if getattr(self, knob) not in PATHS:
-                raise ValueError(f"{knob}={getattr(self, knob)!r}: expected "
-                                 f"one of {PATHS}")
+            check_path(getattr(self, knob), knob=knob)
         if self.dedup not in ("scatter", "sort"):
             raise ValueError(f"dedup={self.dedup!r}: expected 'scatter' or "
                              f"'sort'")
@@ -110,7 +111,8 @@ class BFSConfig:
         the engine."""
         return (self.fold_codec, self.direction_mode, self.edge_chunk,
                 self.dedup, self.max_levels, self.alpha, self.beta,
-                self.expand, self.fold, self.bottomup, self.exchange)
+                self.expand_fn, self.expand, self.fold, self.bottomup,
+                self.exchange)
 
     def algo_engine_key(self, program_key: tuple, codec_name: str,
                         max_levels: int) -> tuple:
@@ -119,8 +121,8 @@ class BFSConfig:
         in the direction wrapper's key) plus the knobs the engine bakes in;
         the codec and `max_levels` are per call."""
         return ("algo", program_key, codec_name, self.edge_chunk, self.dedup,
-                max_levels, self.expand, self.fold, self.bottomup,
-                self.exchange)
+                max_levels, self.expand_fn, self.expand, self.fold,
+                self.bottomup, self.exchange)
 
     def resolve_grid(self, n: int) -> Grid2D:
         """Concretise the `grid` spelling against n vertices (padding up)."""

@@ -185,8 +185,9 @@ class DistGraph:
                 self.topology, program,
                 fold_codec=config.fold_codec, edge_chunk=config.edge_chunk,
                 max_levels=config.max_levels, expand=config.expand,
-                fold=config.fold, dedup=config.dedup,
-                bottomup=config.bottomup, exchange=config.exchange)
+                expand_fn=config.expand_fn, fold=config.fold,
+                dedup=config.dedup, bottomup=config.bottomup,
+                exchange=config.exchange)
             self._engines[key] = eng
         return eng
 
@@ -280,8 +281,9 @@ class GraphSession:
             eng = FrontierEngine(
                 self.graph.topology, program, fold_codec=codec,
                 edge_chunk=cfg.edge_chunk, max_levels=max_levels,
-                expand=cfg.expand, fold=cfg.fold, dedup=cfg.dedup,
-                bottomup=cfg.bottomup, exchange=cfg.exchange)
+                expand=cfg.expand, expand_fn=cfg.expand_fn, fold=cfg.fold,
+                dedup=cfg.dedup, bottomup=cfg.bottomup,
+                exchange=cfg.exchange)
             self.graph._engines[key] = eng
         return eng
 

@@ -21,17 +21,18 @@
 // search, as B1 does.  `total` is read from device memory, so a launch
 // needs no host synchronisation.  There is no dedup stage: the caller's
 // scatter-min per row is order-independent.
-#include <climits>
-#include <cstdint>
+//
+// Stage 1 is `stage::workload_map` of stages.cuh, the search B1, B8 and
+// B10 run, here over the value-clipped cumsum.
 #include <cuda_runtime.h>
+
+#include "stages.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using stage::clip_by_value;
 
-__device__ __forceinline__ int clip_by_value(int x, int total) {
-  return x < total ? x : INT_MAX;
-}
+constexpr int kThreads = 256;
 
 __global__ void bottomup_chunk_kernel(
     int start, int n_lanes, const int* __restrict__ cumul, int nrl,
@@ -46,12 +47,7 @@ __global__ void bottomup_chunk_kernel(
   const int total = *total_p;
 
   // stage 1: workload map over the value-clipped masked cumsum
-  int lo = 0, hi = nrl + 1;
-  while (hi - lo > 1) {
-    const int mid = lo + (hi - lo) / 2;
-    if (clip_by_value(cumul[mid], total) <= gid) lo = mid; else hi = mid;
-  }
-  const int r = min(lo, nrl - 1);
+  const int r = min(stage::workload_map(cumul, nrl + 1, gid, total), nrl - 1);
 
   // stage 2: in-neighbour gather through the CSR offsets; the address wraps
   // as int32 exactly as the JAX formula does before it is clipped
@@ -99,12 +95,7 @@ __global__ void bottomup_chunk_values_kernel(
   const int gid = start + (int)t;
   const int total = *total_p;
 
-  int lo = 0, hi = nrl + 1;
-  while (hi - lo > 1) {
-    const int mid = lo + (hi - lo) / 2;
-    if (clip_by_value(cumul[mid], total) <= gid) lo = mid; else hi = mid;
-  }
-  const int r = min(lo, nrl - 1);
+  const int r = min(stage::workload_map(cumul, nrl + 1, gid, total), nrl - 1);
   const int addr = (int)((unsigned)row_off[r] + (unsigned)gid -
                          (unsigned)clip_by_value(cumul[r], total));
   const bool live = gid < total;

@@ -24,13 +24,11 @@
 // paper's Kepler code.  front_total and the live total are read from device
 // memory, so a launch needs no host synchronisation.
 //
-// Stage 3 keeps the tile's v values and live flags in shared memory and
-// each lane scans the lanes before it (a broadcast read per step: every
-// lane of a warp reads the same word).  That is O(tile) work per lane and
-// is the simple, exact form; a shared-memory hash claim table is the
-// faster later form.
-#include <cstdint>
+// Stages 1 and 3 are `stage::workload_map` and `stage::filter_tile` of
+// stages.cuh, shared with the standalone ops B10 and B11 (stages.cu).
 #include <cuda_runtime.h>
+
+#include "stages.cuh"
 
 namespace {
 
@@ -41,24 +39,13 @@ __global__ void expand_chunk_kernel(
     long long nnz_cap, const unsigned* __restrict__ words, long long nw,
     int* __restrict__ v_out, unsigned char* __restrict__ won_out,
     int* __restrict__ u_out) {
-  extern __shared__ int shared[];
-  int* tile_v = shared;
-  unsigned char* tile_live =
-      reinterpret_cast<unsigned char*>(shared + blockDim.x);
-
-  const int lane = threadIdx.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + lane;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int gid = start + (int)t;
   const int ft = *front_total;
   const int total = cumul[ft];
 
   // stage 1: workload map, k = max{l in [0, ft] : cumul[l] <= gid}
-  int lo = 0, hi = ft + 1;
-  while (hi - lo > 1) {
-    const int mid = lo + (hi - lo) / 2;
-    if (cumul[mid] <= gid) lo = mid; else hi = mid;
-  }
-  const int k = min(lo, ncl - 1);
+  const int k = min(stage::workload_map(cumul, ft + 1, gid), ncl - 1);
 
   // stage 2: neighbour gather through the CSC offsets; the address wraps
   // as int32 exactly as the JAX formula does before it is clipped
@@ -70,19 +57,11 @@ __global__ void expand_chunk_kernel(
   const int v = live ? row_idx[a] : 0;
 
   // stage 3: visited-bitmap test + first occurrence within the tile
-  const long long w = min(max((long long)(v >> 5), 0LL), nw - 1);
-  const bool unvisited = live && ((words[w] >> (v & 31)) & 1u) == 0;
-  tile_v[lane] = v;
-  tile_live[lane] = live;
-  __syncthreads();
-  bool dup = false;
-  for (int q = 0; q < lane && !dup; ++q) {
-    dup = tile_live[q] && tile_v[q] == v;
-  }
+  const bool won = stage::filter_tile(v, live, words, nw);
 
   v_out[t] = v;
   u_out[t] = u;
-  won_out[t] = unvisited && !dup;
+  won_out[t] = won;
 }
 
 
@@ -112,12 +91,7 @@ __global__ void expand_chunk_values_kernel(
   const int ft = *front_total;
   const int total = cumul[ft];
 
-  int lo = 0, hi = ft + 1;
-  while (hi - lo > 1) {
-    const int mid = lo + (hi - lo) / 2;
-    if (cumul[mid] <= gid) lo = mid; else hi = mid;
-  }
-  const int k = min(lo, ncl - 1);
+  const int k = min(stage::workload_map(cumul, ft + 1, gid), ncl - 1);
   const int u = min(max(front[k], 0), ncl - 1);
   const int addr =
       (int)((unsigned)col_off[u] + (unsigned)gid - (unsigned)cumul[k]);
@@ -150,8 +124,8 @@ extern "C" int expand_chunk_launch(
     int ncl, const int* front_total, const int* col_off, const int* row_idx,
     long long nnz_cap, const int* words, long long nw, int* v_out,
     unsigned char* won_out, int* u_out, void* stream) {
-  const size_t shmem = (size_t)tile * (sizeof(int) + 1);
-  expand_chunk_kernel<<<n_lanes / tile, tile, shmem, (cudaStream_t)stream>>>(
+  expand_chunk_kernel<<<n_lanes / tile, tile, stage::filter_tile_shmem(tile),
+                        (cudaStream_t)stream>>>(
       start, cumul, front, ncl, front_total, col_off, row_idx, nnz_cap,
       reinterpret_cast<const unsigned*>(words), nw, v_out, won_out, u_out);
   return (int)cudaGetLastError();

@@ -19,6 +19,9 @@ reference scans (`core.frontier.reference_bottomup_chunk` and
 `reference_bottomup_values_chunk`, `searchsorted` on the unclipped cumsum)
 give another r and address; only `hit` lanes reach the search's result,
 where all agree.
+
+`make_bottomup_fn` / `make_value_bottomup_fn` build the chunk hooks the
+engines call, on the kernel or the plain path.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.core import frontier as F
 from repro_torch.kernels import build
-from repro_torch.kernels.select import launches_kernel
+from repro_torch.kernels.select import chunk_hook, launches_kernel
 
 I32_MAX = 2**31 - 1
 
@@ -186,3 +189,34 @@ def bottomup_chunk_values(start: int, n_lanes: int, cumul, total, row_off,
 
 
 bottomup_chunk_values.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# Engine hooks: the chunk functions FrontierEngine threads into its scans
+# ----------------------------------------------------------------------------
+
+def make_bottomup_fn(*, path: str = "auto"):
+    """The chunk hook of the BFS bottom-up step (`algos.direction`):
+
+        (start, n_lanes, cumul, total, row_off, col_idx, words, *, block)
+            -> (r, c, hit)
+
+    path (`select.chunk_hook`): "kernel" is `bottomup_chunk` (B7) and
+    refuses CPU tensors, "reference" `plain_bottomup_chunk`, "auto"
+    `bottomup_chunk`, which picks by the tensors' device.  Unlike JAX's it
+    takes no tile: the kernel has no tile stage."""
+    return chunk_hook(bottomup_chunk, plain_bottomup_chunk, path)
+
+
+def make_value_bottomup_fn(*, path: str = "auto"):
+    """The chunk hook of the value programs' pull scan
+    (`algos.direction.make_pull_scan`):
+
+        (start, n_lanes, cumul, total, row_off, col_idx, words, dense_pay,
+         *, block) -> (r, pay, addr, hit)
+
+    path as for `make_bottomup_fn`: "kernel" is `bottomup_chunk_values`
+    (B9), "reference" `plain_bottomup_chunk_values`.  No tile, as for
+    `make_bottomup_fn`."""
+    return chunk_hook(bottomup_chunk_values, plain_bottomup_chunk_values,
+                      path)

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 `sm_90a` into its own shared library, loaded with ctypes.  The build runs at
 first use, from the checkout's sources only, into `build/kernels/` at the
 repository root (listed in `.gitignore`).  A library's file name carries a
-hash of its source, so an edited source is rebuilt and a stale library is
-never loaded.  All sources compile at once, one `nvcc` process each.
+hash of its source and of the shared headers (`csrc/*.cuh`), so an edited
+source or header is rebuilt and a stale library is never loaded.  All
+sources compile at once, one `nvcc` process each.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("expand", "compact", "bottomup", "bits", "delta")
+SOURCES = ("expand", "compact", "bottomup", "bits", "delta", "stages")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict:

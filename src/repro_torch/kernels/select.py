@@ -11,16 +11,23 @@ the device say.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 PATHS = ("auto", "kernel", "reference")
 
 
+def check_path(spec, *, knob: str) -> None:
+    """Raise on a path spelling that is not one of PATHS."""
+    if spec not in PATHS:
+        raise ValueError(f"{knob}={spec!r}: expected one of {PATHS}")
+
+
 def resolve_path(spec, device, *, knob: str) -> str:
     """Concretise a path spelling against the device the search runs on:
     returns "kernel" or "reference"."""
-    if spec not in PATHS:
-        raise ValueError(f"{knob}={spec!r}: expected one of {PATHS}")
+    check_path(spec, knob=knob)
     on_cuda = torch.device(device).type == "cuda"
     if spec == "auto":
         return "kernel" if on_cuda else "reference"
@@ -40,3 +47,25 @@ def launches_kernel(t: torch.Tensor, what: str) -> bool:
         return False
     raise ValueError(f"{what}: no kernel or plain version for device "
                      f"{t.device}")
+
+
+def chunk_hook(kernel, plain, path: str, **fixed):
+    """A chunk hook for a path spelling, fixed when the hook is made:
+    "reference" is the plain version, "auto" the kernel wrapper (which
+    launches on CUDA tensors and runs the plain version on CPU tensors),
+    "kernel" the kernel wrapper behind one test that refuses non-CUDA
+    tensors.  `fixed` are keyword arguments bound into the hook (tile)."""
+    check_path(path, knob="path")
+    if path == "reference":
+        return functools.partial(plain, **fixed)
+    if path == "auto":
+        return functools.partial(kernel, **fixed)
+
+    def on_cuda(start, n_lanes, cumul, *args, **kw):
+        if not cumul.is_cuda:
+            raise ValueError(
+                f"path='kernel' needs a CUDA device, got {cumul.device}; "
+                "use path='auto' or 'reference' on the CPU")
+        return kernel(start, n_lanes, cumul, *args, **fixed, **kw)
+
+    return functools.update_wrapper(on_cuda, kernel)

@@ -30,7 +30,6 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
 @pytest.mark.parametrize("knob,value,item", [
     ("telemetry", True, "A10"), ("fault_tolerance", True, "A11"),
     ("exchange", "butterfly", "A9"), ("exchange", "auto", "A9"),
-    ("expand_fn", lambda *a: a, "A17"),
 ])
 def test_unsupported_knobs_name_their_roadmap_item(knob, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):

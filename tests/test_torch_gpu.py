@@ -15,6 +15,7 @@ from repro_torch.core import frontier as F
 from repro_torch.kernels import bottomup as KB
 from repro_torch.kernels import expand as K
 from repro_torch.kernels import fold as KF
+from repro_torch.kernels import stages as S
 
 
 @pytest.fixture
@@ -201,3 +202,103 @@ def test_delta_kernels_equal_plain_on_card(cuda_device, rng):
     big = torch.full((2, 40000), -1, dtype=torch.int16)    # gaps of 65535
     assert torch.equal(KF.delta_positions(big.to(cuda_device)).cpu(),
                        KF.plain_delta_positions(big))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [64, 256, 512, 1024])
+def test_binsearch_map_equals_plain_on_card(cuda_device, rng, tile):
+    """binsearch_map equals its plain version on every lane, and each
+    launch counts: runs of zero-degree frontier vertices, n_cumul < 256,
+    front_total = 0, a chunk straddling the live total, lanes below
+    cumul[0]."""
+    for n_seg, ft, shift in ((100, 100, 0), (3000, 2000, 0), (3000, 0, 0),
+                             (200, 150, 17)):
+        deg = rng.integers(0, 9, size=n_seg).astype(np.int32)
+        deg[n_seg // 4:n_seg // 2] = 0
+        cumul = torch.from_numpy(
+            np.concatenate([[0], np.cumsum(deg)]).astype(np.int32) + shift)
+        cc = S.clip_cumul(cumul, ft)
+        total = int(cumul[ft])
+        for start in (0, max(total - 2 * tile, 0)):
+            gids = start + torch.arange(4 * tile, dtype=torch.int32)
+            plain = S.map_workload(gids, cc)
+            n0 = S.binsearch_map.launches
+            kern = S.binsearch_map(cc.to(cuda_device), gids.to(cuda_device),
+                                   tile=tile)
+            torch.cuda.synchronize()
+            assert S.binsearch_map.launches == n0 + 1
+            assert torch.equal(kern.cpu(), plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [64, 256, 512, 1024])
+def test_visited_filter_equals_plain_on_card(cuda_device, rng, tile):
+    """visited_filter equals its plain version on every lane, and each
+    launch counts: n_rows % 32 != 0, all-visited and all-clear words,
+    all-invalid lanes, many duplicates within a tile."""
+    n_rows = 10_007
+    for words_kind, p_valid, span in (("random", 0.7, n_rows),
+                                      ("random", 0.7, 2 * tile // 3),
+                                      ("all_visited", 0.7, n_rows),
+                                      ("all_clear", 0.9, 50),
+                                      ("random", 0.0, n_rows)):
+        v = torch.from_numpy(rng.integers(0, span, size=8 * tile)
+                             .astype(np.int32))
+        valid = torch.from_numpy(rng.random(8 * tile) < p_valid)
+        nw = (n_rows + 31) // 32
+        if words_kind == "random":
+            words = torch.from_numpy(rng.integers(0, 2**32, size=nw,
+                                                  dtype=np.uint64)
+                                     .astype(np.uint32).view(np.int32))
+        else:
+            words = torch.full((nw,), -1 if words_kind == "all_visited"
+                               else 0, dtype=torch.int32)
+        plain = S.filter_tile(v, valid, words, tile)
+        n0 = S.visited_filter.launches
+        kern = S.visited_filter(v.to(cuda_device), valid.to(cuda_device),
+                                words.to(cuda_device), tile=tile)
+        torch.cuda.synchronize()
+        assert S.visited_filter.launches == n0 + 1
+        assert torch.equal(kern.cpu(), plain)
+
+
+@pytest.mark.gpu
+def test_local_expand_and_hook_on_card(cuda_device, rng):
+    """local_expand's kernel path equals its reference path on the card,
+    through B1; a BFS with BFSConfig(expand_fn=make_expand_fn(
+    path="kernel")) equals the default one and launches B1."""
+    from repro_torch.api import BFSConfig, DistGraph
+    n = 3000
+    deg = rng.integers(0, 9, size=n)
+    col_off = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    row_idx = torch.from_numpy(rng.integers(0, n, size=int(deg.sum()))
+                               .astype(np.int32))
+    front = torch.from_numpy(rng.permutation(n)[:1200].astype(np.int32))
+    visited = torch.from_numpy(rng.random(n) < 0.2)
+    args = [(front.to(cuda_device), 1200),
+            (col_off.to(cuda_device), row_idx.to(cuda_device)),
+            visited.to(cuda_device)]
+    n0 = K.expand_chunk.launches
+    a = K.local_expand(*args, path="kernel", edge_chunk=1024)
+    b = K.local_expand(*args, path="reference", edge_chunk=1024)
+    torch.cuda.synchronize()
+    assert K.expand_chunk.launches > n0
+    for f in ("verts", "parents", "count", "visited", "edges_scanned"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    edges = torch.stack([torch.from_numpy(rng.integers(0, 512, size=4000)),
+                         torch.from_numpy(rng.integers(0, 512, size=4000))])
+    edges = torch.cat([edges, edges.flip(0)], dim=1).to(torch.int32)
+    graph = DistGraph.from_edges(edges.to(cuda_device),
+                                 BFSConfig(grid=(2, 2)), n=512)
+    want = graph.session().bfs(int(edges[0, 0]))
+    n0 = K.expand_chunk.launches
+    sess = graph.session(BFSConfig(grid=(2, 2),
+                                   expand_fn=K.make_expand_fn(path="kernel")))
+    got = sess.bfs(int(edges[0, 0]))
+    torch.cuda.synchronize()
+    assert sess.engine.expand_path == "custom"
+    assert K.expand_chunk.launches > n0
+    assert torch.equal(got.level, want.level)
+    assert torch.equal(got.pred, want.pred)
+    assert got.edges_scanned == want.edges_scanned
