@@ -13,7 +13,14 @@ Phases, one line or more each on stdout:
                shared-memory summary);
   3. parity    each kernel against its plain torch version on the card, bit
                for bit, on random inputs (pack/unpack_bits with S % 32 != 0
-               and all-false / all-true masks; bottomup_chunk and
+               and all-false / all-true masks; expand_chunk and
+               expand_chunk_values on the stage stress cases of
+               scripts/torch_stage_cases.py: one vertex on every lane,
+               vertices congruent modulo the hash table, all-visited /
+               all-clear words, tiles 1, 3 and 384, a zero-degree run
+               longer than a block, one slot spanning many blocks, chunks
+               straddling and wholly past the live total, front_total =
+               0, n_lanes % 256 != 0; bottomup_chunk and
                bottomup_chunk_values with block % 32 != 0, an empty and a
                full frontier, total = 0 and a chunk straddling the live
                total; expand_chunk_values with an empty frontier, total = 0
@@ -40,7 +47,11 @@ Phases, one line or more each on stdout:
                runs in cumul, front_total = 0, chunks straddling the live
                total, n_cumul < 256, lanes below cumul[0], tiles 64, 256,
                512 and 1024, n_rows % 32 != 0, all-visited and all-clear
-               words, all-invalid lanes); then, with the counts at 0, the
+               words, all-invalid lanes; the hash-claim stress cases of
+               scripts/torch_stage_cases.py at tiles 64 to 1024: one
+               vertex on every lane, vertices congruent modulo the table
+               size, v = -1 / INT32_MIN / INT32_MAX); then, with the
+               counts at 0, the
                surface through its entry points: (b) on the real 2^22-lane
                chunk, front[binsearch_map(clip_cumul(cumul), gids)] equals
                B1's u and visited_filter(v, valid, words, tile=512) equals
@@ -301,6 +312,33 @@ def parity_random_values(torch, dev, gen, F, K, KB, KF) -> None:
                            (KF.plain_delta_positions(gaps),))
         log(f"[3 parity] delta_gaps + delta_positions random N={N} S={S} "
             f"p={p}: max_abs_err {err}")
+    torch.cuda.synchronize()
+
+
+def stage_cases():
+    """scripts/torch_stage_cases.py, the stress cases of the stages."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_stage_cases
+    return torch_stage_cases
+
+
+def parity_stage_cases(torch, dev, K) -> None:
+    """Phase 3 for B1 and B8: the stage stress cases, bit for bit."""
+    SC = stage_cases()
+    for name in SC.EXPAND_CASES:
+        c = SC.expand_case(name)
+        start, E = c["start"], c["E"]
+        args = SC.expand_args(c, dev)
+        err = check_equal(torch, f"expand_chunk {name}",
+                          K.expand_chunk(start, E, *args),
+                          K.plain_expand_chunk(start, E, *args))
+        args = SC.value_args(c, dev)
+        err += check_equal(torch, f"expand_chunk_values {name}",
+                           K.expand_chunk_values(start, E, *args),
+                           K.plain_expand_chunk_values(start, E, *args))
+        log(f"[3 parity] expand_chunk + expand_chunk_values stage case "
+            f"{name} start={start} E={E} tile {K.pick_tile(E, 512)}: "
+            f"max_abs_err {err}")
     torch.cuda.synchronize()
 
 
@@ -841,6 +879,16 @@ def parity_random_stages(torch, dev, gen, F, S) -> None:
         log(f"[12 stages] visited_filter random {words_kind} words, n_rows "
             f"{n_rows}, tiles {tiles}, valid 0.7 / all invalid, distinct / "
             f"duplicated vertices: {calls} calls, max_abs_err {err}")
+    SC = stage_cases()
+    for name in SC.FILTER_CASES:
+        err = 0
+        for tile in SC.FILTER_TILES:
+            args = SC.filter_args(SC.filter_case(name, tile), dev)
+            err += check_equal(torch, f"visited_filter {name} tile {tile}",
+                               (S.visited_filter(*args, tile=tile),),
+                               (S.filter_tile(*args, tile),))
+        log(f"[12 stages] visited_filter stage case {name}, tiles "
+            f"{SC.FILTER_TILES}: max_abs_err {err}")
     torch.cuda.synchronize()
 
 
@@ -1100,6 +1148,7 @@ def main() -> int:
                           pout + (pcnt,))
         log(f"[3 parity] compact_rows random N={N} S={S}: max_abs_err {err}")
     del rnd, deg, col_off, row_idx, front, visited, cumul, words
+    parity_stage_cases(torch, dev, K)
     parity_random_dir(torch, dev, gen, KF, KB)
     parity_random_values(torch, dev, gen, F, K, KB, KF)
     phases.end("3 parity")

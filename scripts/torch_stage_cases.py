@@ -1,0 +1,200 @@
+"""Inputs that stress the stages of the fused expand kernels (B1
+`expand_chunk`, B8 `expand_chunk_values`) and of B11 `visited_filter`,
+made with numpy from one seed.
+
+Stage 1 maps a block of consecutive edge ids to frontier slots
+(`stage::workload_map_block` in `src/repro_torch/csrc/stages.cuh`); stage
+3 dedups a tile through a hash table in shared memory (`stage::
+filter_tile`).  The cases aim at what each could get wrong:
+
+  EXPAND_CASES (B1 and B8; start, chunk length E)
+    one_vertex     every live lane carries the same vertex
+    congruent      vertices congruent modulo the 1024-slot table of tile 512
+    all_visited    every visited bit set
+    all_clear      no visited bit set, 50 rows: many duplicates a tile
+    tile_1/3/384   chunk lengths 521, 1563 and 1152, which `pick_tile`
+                   maps to tiles 1, 3 and 384
+    zero_run       700 zero-degree frontier slots in a row, longer than a
+                   block
+    wide_slot      one frontier slot of degree 3000, spanning many blocks
+    straddle       a chunk straddling the live total
+    past_total     a chunk wholly past it
+    front_total_0  an empty frontier
+    ragged         E = 1000 from start 37: n_lanes % 256 != 0 for B8
+
+  FILTER_CASES (B11, at each tile of FILTER_TILES, 4 tiles of lanes)
+    one_vertex     every valid lane carries the same unvisited vertex
+    congruent      vertices congruent modulo the tile's table size
+    extremes       valid lanes with v = -1, INT32_MIN, INT32_MAX, 0, 31, 32
+    all_visited    every visited bit set
+    all_clear      no visited bit set, 40 distinct vertices a tile
+
+The tests hold the port's plain versions to the JAX package's Pallas
+kernels on these inputs (CPU) and the kernels to the plain versions (on
+the card, tests/test_torch_gpu.py and chip_smoke.py phases 3 and 12).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+EXPAND_CASES = ("one_vertex", "congruent", "all_visited", "all_clear",
+                "tile_1", "tile_3", "tile_384", "zero_run", "wide_slot",
+                "straddle", "past_total", "front_total_0", "ragged")
+EXPAND_TILES = {"tile_1": 1, "tile_3": 3, "tile_384": 384}
+FILTER_CASES = ("one_vertex", "congruent", "extremes", "all_visited",
+                "all_clear")
+FILTER_TILES = (64, 128, 256, 512, 1024)
+
+
+def table_slots(tile: int) -> int:
+    """Slots of stage 3's hash table at `tile` lanes: the next power of
+    two >= 2 * tile (`stage::filter_table_slots`)."""
+    slots = 2
+    while slots < 2 * tile:
+        slots <<= 1
+    return slots
+
+
+def pack_words(visited) -> np.ndarray:
+    """The packed visited bitmap as int32 bit patterns, bit i of word w
+    for row 32 w + i (`core.frontier.pack_bitmap`)."""
+    n = visited.shape[0]
+    padded = np.zeros(32 * ((n + 31) // 32), bool)
+    padded[:n] = visited
+    return np.packbits(padded, bitorder="little").view("<u4") \
+        .astype(np.uint32).view(np.int32)
+
+
+def _block(rng, deg, n_rows, front_total, rows=None):
+    """A CSC block with the given column degrees; the frontier is columns
+    0 .. front_total - 1 in order, so cumul follows `deg`."""
+    ncl = deg.shape[0]
+    col_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = max(int(col_off[-1]), 1)
+    row_idx = rng.integers(0, n_rows, size=nnz + 5).astype(np.int32)
+    if rows is not None:
+        row_idx[:nnz] = rows(nnz)
+    row_idx[nnz:] = -1                                   # padding
+    front = np.full(ncl, -1, np.int32)
+    front[:front_total] = np.arange(front_total, dtype=np.int32)
+    live_deg = np.where(np.arange(ncl) < front_total, deg, 0)
+    cumul = np.concatenate([[0], np.cumsum(live_deg)]).astype(np.int32)
+    payload = rng.integers(-5, I32_MAX, size=ncl).astype(np.int32)
+    return dict(cumul=cumul, front=front, payload=payload,
+                front_total=front_total, col_off=col_off, row_idx=row_idx)
+
+
+def expand_case(name: str, seed: int = 0) -> dict:
+    """One EXPAND_CASES input: numpy arrays cumul, front, payload,
+    col_off, row_idx, visited (bool), words (int32); ints front_total,
+    start, E."""
+    assert name in EXPAND_CASES, name
+    rng = np.random.default_rng([seed, EXPAND_CASES.index(name)])
+    n_rows, ncl, max_deg, ft, rows = 300, 100, 9, 100, None
+    start, E = 0, 1024
+    if name in ("one_vertex", "congruent", "all_visited", "all_clear"):
+        ncl, max_deg, ft = 64, 40, 64
+    if name == "one_vertex":
+        rows = lambda nnz: np.full(nnz, 7, np.int32)    # noqa: E731
+    elif name == "congruent":
+        n_rows = 64 * 1024
+        rows = lambda nnz: (5 + 1024 * rng.integers(0, 64, size=nnz)) \
+            .astype(np.int32)                           # noqa: E731
+    elif name == "all_clear":
+        n_rows = 50
+    elif name in EXPAND_TILES:
+        E = {"tile_1": 521, "tile_3": 1563, "tile_384": 1152}[name]
+    elif name == "zero_run":
+        ncl, ft, E = 1000, 1000, 2048
+    elif name == "wide_slot":
+        ncl, ft, E = 50, 50, 4096
+    elif name == "ragged":
+        start, E = 37, 1000
+    deg = rng.integers(0, max_deg, size=ncl).astype(np.int32)
+    if name == "zero_run":
+        deg[200:900] = 0
+    elif name == "wide_slot":
+        deg[10] = 3000
+    elif name == "front_total_0":
+        ft = 0
+    case = _block(rng, deg, n_rows, ft, rows)
+    total = int(case["cumul"][ft])
+    if name == "straddle":
+        start = max(total - 300, 0)
+    elif name == "past_total":
+        start = total + 100
+    visited = rng.random(n_rows) < 0.3
+    if name == "one_vertex":
+        visited[7] = False
+    elif name == "all_visited":
+        visited[:] = True
+    elif name == "all_clear":
+        visited[:] = False
+    case.update(name=name, start=start, E=E, visited=visited,
+                words=pack_words(visited))
+    return case
+
+
+def filter_case(name: str, tile: int, seed: int = 0) -> dict:
+    """One FILTER_CASES input at `tile`: numpy v (int32), valid (bool),
+    words (int32) over 4 tiles of lanes."""
+    assert name in FILTER_CASES, name
+    rng = np.random.default_rng([seed, FILTER_CASES.index(name), tile])
+    e = 4 * tile
+    slots = table_slots(tile)
+    n_rows = 2048
+    valid = rng.random(e) < 0.7
+    if name == "one_vertex":
+        v = np.full(e, 9, np.int32)
+    elif name == "congruent":
+        n_rows = 64 * slots + 32
+        v = (3 + slots * rng.integers(0, 64, size=e)).astype(np.int32)
+    elif name == "extremes":
+        v = rng.choice(np.array([-1, I32_MIN, I32_MAX, 0, 31, 32],
+                                np.int32), size=e)
+        valid = rng.random(e) < 0.8
+    elif name == "all_clear":
+        v = rng.integers(0, 40, size=e).astype(np.int32)
+    else:
+        v = rng.integers(0, n_rows, size=e).astype(np.int32)
+    nw = (n_rows + 31) // 32
+    words = rng.integers(0, 2**32, size=nw, dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    if name in ("one_vertex", "extremes"):
+        # unvisited: 9, -1, INT32_MIN, 0, 31 (word 0), 32 (word 1) and
+        # INT32_MAX (the last word, where the clamp puts it)
+        words[:2] = 0
+        words[-1] = 0
+    elif name == "all_visited":
+        words[:] = -1
+    elif name == "all_clear":
+        words[:] = 0
+    return dict(name=name, tile=tile, v=v, valid=valid, words=words)
+
+
+def expand_args(case: dict, device):
+    """B1's tensor arguments after (start, E): (cumul, front, front_total,
+    col_off, row_idx, words) on `device`."""
+    import torch
+    t = {k: torch.from_numpy(case[k]).to(device)
+         for k in ("cumul", "front", "col_off", "row_idx", "words")}
+    ft = torch.tensor(case["front_total"], dtype=torch.int32, device=device)
+    return (t["cumul"], t["front"], ft, t["col_off"], t["row_idx"],
+            t["words"])
+
+
+def value_args(case: dict, device):
+    """B8's tensor arguments after (start, E): (cumul, front, payload,
+    front_total, col_off, row_idx) on `device`."""
+    import torch
+    cumul, front, ft, col_off, row_idx, _ = expand_args(case, device)
+    payload = torch.from_numpy(case["payload"]).to(device)
+    return cumul, front, payload, ft, col_off, row_idx
+
+
+def filter_args(case: dict, device):
+    """B11's tensor arguments (v, valid, words) on `device`."""
+    import torch
+    return tuple(torch.from_numpy(case[k]).to(device)
+                 for k in ("v", "valid", "words"))

@@ -18,12 +18,13 @@
 // neighbouring lanes share most of their probes (they hit in L1/L2).  The
 // TPU kernel replaced the per-lane binary search by windowed broadcast-
 // compares; a GPU thread gathers natively, so each thread runs its own
-// search, as B1 does.  `total` is read from device memory, so a launch
+// search, as B10 does.  `total` is read from device memory, so a launch
 // needs no host synchronisation.  There is no dedup stage: the caller's
 // scatter-min per row is order-independent.
 //
-// Stage 1 is `stage::workload_map` of stages.cuh, the search B1, B8 and
-// B10 run, here over the value-clipped cumsum.
+// Stage 1 is `stage::workload_map` of stages.cuh, the per-thread search
+// B10 runs, here over the value-clipped cumsum.  (B1 and B8 map their
+// blocks with `stage::workload_map_block`, which takes no cap yet.)
 #include <cuda_runtime.h>
 
 #include "stages.cuh"

@@ -2,9 +2,19 @@
 // 5-8), one copy of each: expand.cu (B1, B8) and bottomup.cu (B7, B9) run
 // them fused, stages.cu (B10, B11) runs them as standalone ops.
 //
+// Stage 1 has two forms.  `workload_map` is one binary search per thread,
+// for lanes that carry any sorted gids (B10) or a value cap (B7, B9).
+// `workload_map_block` is the block-cooperative form for a block of
+// consecutive gids (B1, B8): two searches per block, then a walk over the
+// frontier slots the block spans.  Stage 3, `filter_tile`, claims into a
+// hash table in shared memory (B1, B11).  The block forms give each thread
+// kLanes lanes.
+//
 // The words are the uint32 visited bitmap as int32 bit patterns; the
 // kernels read them as unsigned, so the test shifts them as unsigned.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
@@ -20,10 +30,10 @@ __device__ __forceinline__ int clip_by_value(int x, int cap) {
 // Stage 1, the workload map:
 //   max{l in [0, n) : clip_by_value(cumul[l], cap) <= gid}, 0 where none,
 // over a non-decreasing cumul; the default cap reads cumul as it is.  One
-// independent binary search per thread: the TPU kernels' windowed
-// broadcast-compare existed because the VPU has no cheap scalar gathers,
-// and a GPU thread gathers natively.  Neighbouring lanes share most of
-// their probes, so after the first probes they hit in L1/L2.
+// independent binary search per thread, log2(n) dependent loads: the form
+// for gids that are sorted but not consecutive (B10) and for the bottom-up
+// kernels' value cap (B7, B9).  Neighbouring lanes share most of their
+// probes, so after the first probes they hit in L1/L2.
 __device__ __forceinline__ int workload_map(const int* __restrict__ cumul,
                                             int n, int gid,
                                             int cap = INT_MAX) {
@@ -35,40 +45,212 @@ __device__ __forceinline__ int workload_map(const int* __restrict__ cumul,
   return lo;
 }
 
-// Dynamic shared memory that `filter_tile` needs for a tile of `tile`
-// lanes: the tile's values and live flags.
-constexpr size_t filter_tile_shmem(int tile) {
-  return (size_t)tile * (sizeof(int) + 1);
+// The two searches of `workload_map_block`, run by the first `nl` lanes
+// of warp 0 together (mask: those lanes).  Each round every lane probes
+// one point of each range, lane 0 the range's low end, and a ballot keeps
+// the last point that is <= the target: ceil(log_nl(n)) rounds of
+// dependent loads in place of log2(n), 5 for a 2^25-slot cumul.  The
+// points that are <= the target form a prefix of the lanes, because
+// cumul does not decrease.
+__device__ __forceinline__ void warp_map2(const int* __restrict__ cumul,
+                                          int n, int ga, int gb, int nl,
+                                          unsigned mask, int& ka, int& kb) {
+  if (nl == 1) {
+    ka = workload_map(cumul, n, ga);
+    kb = workload_map(cumul, n, gb);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  int lo_a = 0, hi_a = n, lo_b = 0, hi_b = n;
+  while (hi_a - lo_a > 1 || hi_b - lo_b > 1) {
+    const int sa = (hi_a - lo_a + nl - 1) / nl;
+    const int sb = (hi_b - lo_b + nl - 1) / nl;
+    const long long pa = lo_a + (long long)lane * sa;
+    const long long pb = lo_b + (long long)lane * sb;
+    const bool ta = lane == 0 || (pa < hi_a && cumul[pa] <= ga);
+    const bool tb = lane == 0 || (pb < hi_b && cumul[pb] <= gb);
+    lo_a += (31 - __clz(__ballot_sync(mask, ta))) * sa;
+    lo_b += (31 - __clz(__ballot_sync(mask, tb))) * sb;
+    hi_a = min(lo_a + sa, hi_a);
+    hi_b = min(lo_b + sb, hi_b);
+  }
+  ka = lo_a;
+  kb = lo_b;
 }
 
-// Stage 3, the visited filter over one tile = one block (blockDim.x lanes):
+// Lanes a thread carries in the block forms (`workload_map_block`,
+// `filter_tile`): a block takes kLanes * blockDim.x consecutive lanes,
+// thread t the lanes j * blockDim.x + t, so one search and one set of
+// barriers serve kLanes lanes a thread, and each thread has kLanes
+// independent loads in flight.
+constexpr int kLanes = 4;
+
+// Dynamic shared memory that `workload_map_block` needs for a block of
+// `threads` threads: one int a lane.
+__host__ __device__ constexpr size_t workload_map_block_shmem(int threads) {
+  return (size_t)kLanes * threads * sizeof(int);
+}
+
+// Stage 1 for a block whose lane i = j * blockDim.x + t carries gid =
+// g0 + i, i < n_live (1 <= n_live <= kLanes * blockDim.x); k[j] is lane
+// i's
+//   max{l in [0, n) : cumul[l] <= gid}, 0 where none,
+// equal to `workload_map` on every such lane (a lane past n_live gets
+// some slot in [0, n)).  The gids are consecutive, so their k form one
+// non-decreasing run from k_first = k(g0) to k_last = k(g0 + n_live - 1).
+// Warp 0 finds both (`warp_map2`); the block then walks the slots l in
+// (k_first, k_last] with coalesced loads, each writing l at cumul[l] - g0
+// in `kmap` (shared, kLanes * blockDim.x ints) with atomicMax: a run of
+// zero-degree slots shares one cumul value, and the map takes the last
+// slot of the run.  An inclusive max-scan over the block seeded with
+// k_first gives each lane its k: each thread scans kLanes consecutive
+// entries, the threads' maxima are scanned with warp shuffles and one
+// pass across warps.  Work per block is O(lanes + span); over a chunk
+// O(lanes + frontier slots), in place of log2(n) probes a lane.  Every
+// thread of the block must call it: it synchronises the block.
+__device__ __forceinline__ void workload_map_block(
+    const int* __restrict__ cumul, int n, int g0, int n_live, int* kmap,
+    int (&k)[kLanes]) {
+  __shared__ int k_ends[2];
+  __shared__ int warp_max[32];
+  const int t = threadIdx.x, threads = blockDim.x;
+  const int lane = t & 31, warp = t >> 5;
+  // lanes of this thread's warp that exist (a block may be < 32 or ragged)
+  const int in_warp = min(32, threads - (warp << 5));
+  const unsigned wmask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1;
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) kmap[j * threads + t] = -1;
+  if (warp == 0) {
+    int ka, kb;
+    warp_map2(cumul, n, g0, g0 + (n_live - 1), in_warp, wmask, ka, kb);
+    if (lane == 0) {
+      k_ends[0] = ka;
+      k_ends[1] = kb;
+    }
+  }
+  __syncthreads();
+  const int k_first = k_ends[0], k_last = k_ends[1];
+  // each walked slot has g0 < cumul[l] <= g0 + n_live - 1
+  for (int l = k_first + 1 + t; l <= k_last; l += threads) {
+    atomicMax(&kmap[cumul[l] - g0], l);
+  }
+  __syncthreads();
+  int part[kLanes];
+  int m = k_first;
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    m = max(m, kmap[t * kLanes + j]);
+    part[j] = m;
+  }
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(wmask, m, d);
+    if (lane >= d) m = max(m, o);
+  }
+  if (lane == in_warp - 1) warp_max[warp] = m;
+  __syncthreads();
+  int before = k_first;             // max over the entries of lower threads
+  for (int w = 0; w < warp; ++w) before = max(before, warp_max[w]);
+  const int up = __shfl_up_sync(wmask, m, 1);
+  if (lane > 0) before = max(before, up);
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    kmap[t * kLanes + j] = max(part[j], before);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) k[j] = kmap[j * threads + t];
+}
+
+// Slots of one tile's hash table in `filter_tile` for a tile of `tile`
+// lanes: the next power of two >= 2 * tile, so at most half of it is
+// ever full (1024 slots, 8 KiB, at tile 512; 16 KiB at 1024).
+__host__ __device__ constexpr int filter_table_slots(int tile) {
+  int slots = 2;
+  while (slots < 2 * tile) slots <<= 1;
+  return slots;
+}
+
+// Dynamic shared memory that `filter_tile` needs for blocks of `tile`
+// threads: the kLanes tiles' hash tables (32 KiB at tile 512).  A kernel
+// that needs more places it after this much.
+__host__ __device__ constexpr size_t filter_tile_shmem(int tile) {
+  return (size_t)kLanes * filter_table_slots(tile) *
+         sizeof(unsigned long long);
+}
+
+constexpr unsigned long long kEmptySlot = ~0ull;
+
+// Stage 3, the visited filter over kLanes tiles of blockDim.x lanes each
+// (tile j is the lanes j * blockDim.x + t, thread t carrying x[j]):
 //   won = live & bit x of `words` unset
 //         & no earlier live lane of the tile carries x,
-// with the word index clamp(x >> 5, 0, nw - 1) in 64 bits.  The tile's
-// values and live flags are staged in shared memory and each lane scans
-// the lanes before it (a broadcast read per step: every lane of a warp
-// reads the same word).  That is O(tile) work per lane, the simple exact
-// form; a shared-memory hash claim table is the faster later form.  Every
-// thread of the block must call it: it synchronises the block.
-__device__ __forceinline__ bool filter_tile(int x, bool live,
+// with the word index clamp(x >> 5, 0, nw - 1) in 64 bits.  Only live,
+// unvisited lanes claim (whether x is visited depends on x alone, so a
+// visited x loses on every lane that carries it).  A claim is the 64-bit
+// word (uint32)x << 32 | t in its tile's open-addressing table in shared
+// memory, the first slot by a multiplicative hash of x, then linear
+// probing: atomicCAS into an empty slot (all ones; no claim can be, as a
+// lane id is < 1024), atomicMin into the slot already holding x.  Keys
+// never move, so every lane with x ends on the same slot, and after the
+// barrier that slot holds x's smallest lane: a lane wins iff it reads its
+// own claim back.  Exact for every int32 x.  O(1) expected work a lane
+// in place of a scan of the tile.  Every thread of the block must call
+// it: it synchronises the block.
+__device__ __forceinline__ void filter_tile(const int (&x)[kLanes],
+                                            const bool (&live)[kLanes],
                                             const unsigned* __restrict__ words,
-                                            long long nw) {
-  extern __shared__ int tile_shared[];
-  int* tile_v = tile_shared;
-  unsigned char* tile_live =
-      reinterpret_cast<unsigned char*>(tile_shared + blockDim.x);
-
-  const int lane = threadIdx.x;
-  const long long w = min(max((long long)(x >> 5), 0LL), nw - 1);
-  const bool unvisited = live && ((words[w] >> (x & 31)) & 1u) == 0;
-  tile_v[lane] = x;
-  tile_live[lane] = live;
-  __syncthreads();
-  bool dup = false;
-  for (int q = 0; q < lane && !dup; ++q) {
-    dup = tile_live[q] && tile_v[q] == x;
+                                            long long nw,
+                                            bool (&won)[kLanes]) {
+  extern __shared__ unsigned long long filter_table[];
+  const int slots = filter_table_slots(blockDim.x);
+  const int shift = 32 - (31 - __clz(slots));
+  const unsigned t = threadIdx.x;
+  for (int i = t; i < kLanes * slots; i += blockDim.x) {
+    filter_table[i] = kEmptySlot;
   }
-  return unvisited && !dup;
+  bool claims[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    const long long w = min(max((long long)(x[j] >> 5), 0LL), nw - 1);
+    claims[j] = live[j] && ((words[w] >> (x[j] & 31)) & 1u) == 0;
+  }
+  __syncthreads();
+  unsigned slot[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    unsigned long long* table = filter_table + j * slots;
+    const unsigned long long mine =
+        (unsigned long long)(unsigned)x[j] << 32 | t;
+    unsigned h = ((unsigned)x[j] * 0x9E3779B1u) >> shift;
+    if (claims[j]) {
+      for (;;) {
+        const unsigned long long old = atomicCAS(&table[h], kEmptySlot, mine);
+        if (old == kEmptySlot) break;
+        if ((unsigned)(old >> 32) == (unsigned)x[j]) {
+          if ((unsigned)old > t) atomicMin(&table[h], mine);
+          break;
+        }
+        h = (h + 1) & (slots - 1);
+      }
+    }
+    slot[j] = h;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    won[j] = claims[j] &&
+             filter_table[j * slots + slot[j]] ==
+                 ((unsigned long long)(unsigned)x[j] << 32 | t);
+  }
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, past the 48 KiB a
+// launch gets unasked (tiles of 1024 lanes).
+template <typename Kernel>
+inline cudaError_t allow_shmem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace stage

@@ -16,9 +16,14 @@ in torch, on any device, and the plain versions of the two ops.
 `binsearch_map` and `visited_filter` are the stage ops: each launches its
 CUDA kernel in `csrc/stages.cu` for CUDA tensors (counted in
 `fn.launches`) and runs its plain version for CPU tensors.  Both equal the
-Pallas kernels on every lane, masked lanes included.  `window`, the width
-of the TPU kernel's broadcast-compare, has no meaning for a per-thread
-binary search, so the port leaves it out.
+Pallas kernels on every lane, masked lanes included.  `binsearch_map`'s
+kernel runs one binary search per thread, since its gids need only be
+sorted; `window`, the width of the TPU kernel's broadcast-compare, has no
+meaning there, so the port leaves it out.  The fused B1 and B8 map their
+consecutive gids block by block instead (`stage::workload_map_block` in
+`csrc/stages.cuh`).  `visited_filter`'s kernel is B1's stage 3: each lane
+claims its vertex in a hash table in shared memory, and the smallest lane
+of each vertex wins.
 
 Words are the uint32 visited bitmap as int32 bit patterns
 (`core.frontier.pack_bitmap`); the plain test masks with `& 1` after the
@@ -100,7 +105,9 @@ def binsearch_map(cumul, gids, *, tile: int = 512):
     caller (`clip_cumul`); 0 where no entry is <= gids[t].
 
     tile: the Pallas grid's block; as there, the gids must be a multiple
-    of it (else ValueError).  The CUDA kernel runs one thread per lane.
+    of it (else ValueError).  The CUDA kernel runs one thread per lane,
+    each with its own binary search (the per-thread form that B7 and B9
+    run too; B1 and B8 no longer do).
     CUDA tensors launch the kernel (counted in `binsearch_map.launches`);
     CPU tensors run its plain version `map_workload`.  The inputs are
     checked on every device."""
@@ -134,8 +141,10 @@ def visited_filter(v, valid, words, *, tile: int = 256):
 
     v: (E,) int32; valid: (E,) bool; words: the packed visited bitmap as
     int32 bit patterns, at least one word.  E must be a multiple of `tile`
-    (else ValueError); the CUDA kernel runs a tile per block, so it takes
-    tile <= 1024.  CUDA tensors launch the kernel (counted in
+    (else ValueError).  The CUDA kernel gives a tile's lanes to the
+    threads of one block, so it takes tile <= 1024, and dedups each tile
+    through a hash table in shared memory (the next power of two >= 2 *
+    tile slots of 8 B).  CUDA tensors launch the kernel (counted in
     `visited_filter.launches`); CPU tensors run its plain version
     `filter_tile`.  The inputs are checked on every device."""
     dev = v.device

@@ -7,6 +7,9 @@ file imports no jax, so it runs where only torch is installed:
 
 Integer outputs: exact equality.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,19 @@ from repro_torch.kernels import bottomup as KB
 from repro_torch.kernels import expand as K
 from repro_torch.kernels import fold as KF
 from repro_torch.kernels import stages as S
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SC = _load_script("torch_stage_cases")
 
 
 @pytest.fixture
@@ -260,6 +276,51 @@ def test_visited_filter_equals_plain_on_card(cuda_device, rng, tile):
         torch.cuda.synchronize()
         assert S.visited_filter.launches == n0 + 1
         assert torch.equal(kern.cpu(), plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SC.EXPAND_CASES)
+def test_expand_stage_cases_equal_plain_on_card(cuda_device, name):
+    """B1 and B8 equal their plain versions bit for bit on the stage
+    stress cases (`scripts/torch_stage_cases.py`: one vertex on every lane,
+    vertices congruent modulo the hash table, all-visited / all-clear
+    words, tiles 1, 3 and 384, a zero-degree run longer than a block, one
+    slot spanning many blocks, chunks straddling and wholly past the live
+    total, front_total = 0, n_lanes % 256 != 0), each launch counted."""
+    c = SC.expand_case(name)
+    start, E = c["start"], c["E"]
+    plain = K.plain_expand_chunk(start, E, *SC.expand_args(c, "cpu"))
+    n0 = K.expand_chunk.launches
+    kern = K.expand_chunk(start, E, *SC.expand_args(c, cuda_device))
+    torch.cuda.synchronize()
+    assert K.expand_chunk.launches == n0 + 1
+    for p, k in zip(plain, kern):
+        assert torch.equal(p, k.cpu())
+    plain = K.plain_expand_chunk_values(start, E,
+                                        *SC.value_args(c, "cpu"))
+    n0 = K.expand_chunk_values.launches
+    kern = K.expand_chunk_values(start, E, *SC.value_args(c, cuda_device))
+    torch.cuda.synchronize()
+    assert K.expand_chunk_values.launches == n0 + 1
+    for p, k in zip(plain, kern):
+        assert torch.equal(p, k.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", SC.FILTER_TILES)
+@pytest.mark.parametrize("name", SC.FILTER_CASES)
+def test_visited_filter_hash_cases_on_card(cuda_device, name, tile):
+    """B11 equals its plain version bit for bit on the hash-claim stress
+    cases: one vertex on every valid lane, vertices congruent modulo the
+    tile's table size, v = -1 / INT32_MIN / INT32_MAX, all-visited and
+    all-clear words."""
+    c = SC.filter_case(name, tile)
+    plain = S.filter_tile(*SC.filter_args(c, "cpu"), tile)
+    n0 = S.visited_filter.launches
+    kern = S.visited_filter(*SC.filter_args(c, cuda_device), tile=tile)
+    torch.cuda.synchronize()
+    assert S.visited_filter.launches == n0 + 1
+    assert torch.equal(kern.cpu(), plain)
 
 
 @pytest.mark.gpu

@@ -2,8 +2,10 @@
 
   * the plain `expand_chunk` equals `repro.kernels.expand.expand_chunk(...,
     interpret=True)` on (v, won, u), every lane, masked lanes included --
-    on random CSC blocks and on real chunks of an R-MAT search, at chunk
-    lengths that are and are not multiples of 512;
+    on random CSC blocks, on real chunks of an R-MAT search, at chunk
+    lengths that are and are not multiples of 512, and on the inputs of
+    `scripts/torch_stage_cases.py` that stress the CUDA kernel's stages
+    (the kernel is held to this plain version on the card);
   * the plain `compact_rows` equals `repro.kernels.fold.compact_rows(...,
     interpret=True)`;
   * the plain `bottomup_chunk` equals `repro.kernels.bottomup.
@@ -18,6 +20,9 @@ The kernels themselves run only on a card: tests/test_torch_gpu.py.
 
 Everything is integer, so every comparison is exact equality.
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +44,18 @@ from repro_torch.kernels import fold as KF
 from repro_torch.kernels.select import resolve_path
 
 SCALE = 8
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SC = _load_script("torch_stage_cases")
 
 
 def _random_block(rng, ncl, n_rows, front_total, max_deg=9):
@@ -115,6 +132,37 @@ def test_plain_expand_chunk_real_chunks():
             np.testing.assert_array_equal(tv, jv)
             np.testing.assert_array_equal(twon, jwon)
             np.testing.assert_array_equal(tu, ju)
+
+
+@pytest.mark.parametrize("name", SC.EXPAND_CASES)
+def test_plain_expand_chunk_stage_cases_equal_pallas(name):
+    """The stage stress cases (one vertex on every lane, vertices congruent
+    modulo the hash table, all-visited / all-clear words, tiles 1, 3 and
+    384, a zero-degree run longer than a block, one slot spanning many
+    blocks, chunks straddling and wholly past the live total, an empty
+    frontier, a ragged chunk): every lane against the Pallas kernel."""
+    c = SC.expand_case(name)
+    np.testing.assert_array_equal(
+        c["words"], F.pack_bitmap(torch.from_numpy(c["visited"])).numpy())
+    if name in SC.EXPAND_TILES:
+        assert K.pick_tile(c["E"], 512) == SC.EXPAND_TILES[name]
+    start, E, ft = c["start"], c["E"], c["front_total"]
+    gids = jnp.asarray(start + np.arange(E, dtype=np.int32))
+    jv, jwon, ju = jax_expand_chunk(
+        gids, jnp.asarray(c["cumul"]), jnp.asarray(c["front"]),
+        jnp.int32(ft), jnp.asarray(c["col_off"]), jnp.asarray(c["row_idx"]),
+        jnp.asarray(c["visited"]), jnp.asarray(c["words"].view(np.uint32)),
+        interpret=True)
+    tv, twon, tu = K.expand_chunk(start, E, *SC.expand_args(c, "cpu"))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(twon.numpy(), np.asarray(jwon))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    live = start + np.arange(E) < int(c["cumul"][ft])
+    if name in ("all_visited", "past_total", "front_total_0"):
+        assert not twon.numpy().any()
+    if name == "one_vertex":
+        assert twon.numpy().sum() == E // 512 and live.all()
+    assert live.any() == (name not in ("past_total", "front_total_0"))
 
 
 def _random_rows(rng, N, S, p):

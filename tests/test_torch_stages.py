@@ -4,8 +4,9 @@
     interpret=True)` on every lane of `tests/test_kernels.py`'s sweep, and
     the oracle on valid lanes; `clip_cumul` equals JAX's;
   * B11: the plain `visited_filter` equals `repro.kernels.visited_filter`
-    (interpret mode) on every lane; the torch oracles of `kernels/ref.py`
-    equal JAX's;
+    (interpret mode) on every lane, also on the hash-claim stress cases of
+    `scripts/torch_stage_cases.py` at tiles 64 to 1024 (the kernel is held
+    to it on the card); the torch oracles of `kernels/ref.py` equal JAX's;
   * `local_expand(path="reference")` equals JAX `local_expand` under
     "reference" and "pallas-interpret" on all five fields, and its chunk-
     hook branch (the kernel path's code, with the hook on CPU tensors)
@@ -42,6 +43,17 @@ from repro_torch.kernels import ref as R
 from repro_torch.kernels import stages as S
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SC = _load_script("torch_stage_cases")
 OUT_FIELDS = ("verts", "parents", "count", "visited", "edges_scanned")
 
 
@@ -164,6 +176,27 @@ def test_plain_visited_filter_extremes(words_kind, valid_kind, rng):
                             tile=tile).numpy()
     np.testing.assert_array_equal(twon, jwon)
     if words_kind == "all_visited" or valid_kind == "all_invalid":
+        assert not twon.any()
+
+
+@pytest.mark.parametrize("tile", SC.FILTER_TILES)
+@pytest.mark.parametrize("name", SC.FILTER_CASES)
+def test_plain_visited_filter_hash_cases_equal_pallas(name, tile):
+    """The hash-claim stress cases: one vertex on every valid lane,
+    vertices congruent modulo the tile's table size, v = -1 / INT32_MIN /
+    INT32_MAX, all-visited and all-clear words; every lane against the
+    Pallas kernel."""
+    c = SC.filter_case(name, tile)
+    jwon = np.asarray(jax_visited_filter(
+        jnp.asarray(c["v"]), jnp.asarray(c["valid"]),
+        jnp.asarray(c["words"].view(np.uint32)), tile=tile, interpret=True))
+    twon = S.visited_filter(*SC.filter_args(c, "cpu"), tile=tile).numpy()
+    np.testing.assert_array_equal(twon, jwon)
+    if name == "one_vertex":
+        assert twon.sum() == 4
+    elif name == "extremes":
+        assert twon.sum() == 4 * 6
+    elif name == "all_visited":
         assert not twon.any()
 
 
@@ -521,19 +554,11 @@ def test_hook_factories_check_their_path():
 # the kernel bench's cases on the CPU
 # ----------------------------------------------------------------------------
 
-def _load_bench():
-    spec = importlib.util.spec_from_file_location(
-        "torch_kernel_bench", ROOT / "scripts" / "torch_kernel_bench.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_kernel_bench_cases_match_oracles():
     """The bench's inputs at its shapes: the stage ops (their plain
     versions here) against the oracles, and local_expand's two paths
     against each other; timing them needs a card."""
-    bench = _load_bench()
+    bench = _load_script("torch_kernel_bench")
     bench.check(torch.device("cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run(torch.device("cpu"))

@@ -3,7 +3,9 @@ JAX package in process, on random inputs.
 
   * the plain `expand_chunk_values` / `bottomup_chunk_values` equal the
     Pallas kernels (`interpret=True`) on every lane, masked lanes included,
-    and the JAX reference formulas on valid / hit lanes;
+    and the JAX reference formulas on valid / hit lanes; the plain
+    `expand_chunk_values` also on the stage-1 stress cases of
+    `scripts/torch_stage_cases.py` (the kernel is held to it on the card);
   * the plain `delta_gaps` / `delta_positions` equal the Pallas kernels
     (interpret mode): all-invalid rows, full rows of S = 65536 (count = S,
     the header's two words), S % 32 != 0;
@@ -17,6 +19,9 @@ JAX package in process, on random inputs.
 
 Integer outputs: exact equality throughout.
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +53,18 @@ from repro_torch.kernels import fold as KF
 
 I32_MAX = 2**31 - 1
 CPU = torch.device("cpu")
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SC = _load_script("torch_stage_cases")
 
 
 def T(x):
@@ -112,6 +129,26 @@ def test_plain_expand_chunk_values_equals_pallas(ncl, front_total, E, start,
     eq(got[3], valid)
     for g, r in zip(got[:3], (v, jnp.asarray(payload)[k], addr)):
         eq(np.where(valid, g.numpy(), 0), np.where(valid, np.asarray(r), 0))
+
+
+@pytest.mark.parametrize("name", SC.EXPAND_CASES)
+def test_plain_expand_chunk_values_stage_cases_equal_pallas(name):
+    """The stage-1 stress cases (a zero-degree run longer than a block, one
+    slot spanning many blocks, chunks straddling and wholly past the live
+    total, an empty frontier, n_lanes % 256 != 0, and the rest): every
+    lane against the Pallas kernel."""
+    c = SC.expand_case(name)
+    start, E, ft = c["start"], c["E"], c["front_total"]
+    gids = jnp.asarray(start + np.arange(E, dtype=np.int32))
+    kern = jax_expand_chunk_values(
+        gids, jnp.asarray(c["cumul"]), jnp.asarray(c["front"]),
+        jnp.asarray(c["payload"]), jnp.int32(ft), jnp.asarray(c["col_off"]),
+        jnp.asarray(c["row_idx"]), interpret=True)
+    got = KE.expand_chunk_values(start, E, *SC.value_args(c, CPU))
+    for g, k in zip(got, kern):
+        eq(g, k)
+    if name == "ragged":
+        assert E % 256 != 0
 
 
 # ----------------------------------------------------------------------------
