@@ -23,9 +23,20 @@ Phases, one line or more each on stdout:
                0, n_lanes % 256 != 0; bottomup_chunk and
                bottomup_chunk_values with block % 32 != 0, an empty and a
                full frontier, total = 0 and a chunk straddling the live
-               total; expand_chunk_values with an empty frontier, total = 0
-               and a straddling chunk; delta_gaps / delta_positions with
-               all-invalid rows, full rows of S = 65536 and S % 32 != 0);
+               total, and on the bottom-up stress cases of the same script
+               (zero-width runs longer than a block, the flat tail past the
+               live total, a row spanning many blocks, 99 % and 99.8 % of
+               rows visited, ragged chunks), each with the row slots its
+               kernel blocks span; expand_chunk_values with an empty frontier,
+               total = 0 and a straddling chunk; delta_gaps /
+               delta_positions with all-invalid rows, full rows of S =
+               65536 and S % 32 != 0);
+  13. card-cpu right after 3: one R-MAT graph (SCALE --card-cpu-scale, made
+               with numpy) on the card and on the CPU, whose path the CPU
+               tests hold to the JAX package: BFS under five direction x
+               codec x dedup configurations, CC, SSSP and multi-BFS
+               top-down and direction-optimised, every output field equal
+               (scripts/torch_card_vs_cpu.py --quick);
   4. run       the top-down path at the Graph500 "toy" problem class by
                default: R-MAT SCALE 26, edgefactor 16, generated on the card
                from --seed with uint8 weights drawn from 1..255, planned
@@ -77,7 +88,9 @@ Phases, one line or more each on stdout:
                `bfs(roots[:dir_batch])` equals the scalar results; launch
                counts of B1, B2, B3, B4 and B7 must each be > 0;
   7b. parity   B3, B4 and B7 on one real call each captured from phase 7,
-               with time, plain time and bytes bound;
+               with time, plain time and bytes bound; for B7 the row slots
+               each kernel block spans (mean, max), the blocks that search
+               by lane and the slots the rest walk;
   8. dir-path  one root with expand, fold and bottomup = "reference": equal
                to the kernel path (levels, preds, n_levels, edges_scanned,
                directions); one root with direction="bottomup": levels and
@@ -98,7 +111,8 @@ Phases, one line or more each on stdout:
                to phase 9 and running a bottom-up level; one SSSP root and
                CC again with expand, fold and bottomup = "reference", equal
                to the kernel path; B9 launched (> 0), then on one real call:
-               time, plain time, bound;
+               time, plain time, bound, and the row slots its kernel blocks
+               span as in 7b;
   11. delta    after the SCALE 26 graph is freed, the delta codec at its
                limit: R-MAT SCALE --delta-scale on an 8x8 grid, so S =
                65536 (weights as above): `bfs` top-down and direction-
@@ -111,7 +125,9 @@ Phases, one line or more each on stdout:
   6. report    the {"kernels": [...]} line, the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
-Every phase prints its seconds.
+Every phase prints its seconds.  Kernel times are CUDA events around ten
+calls queued behind a device sleep (`cuda_ms`), so they read the device's
+work and not the wrappers' host work.
 
 Any failure exits non-zero before the last line.  Without a CUDA device, or
 run outside a checkout of the repository, it exits non-zero at once.
@@ -131,6 +147,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, published peak
 TD_EQUAL_ROOTS = 8               # direction roots held to the top-down path
 I32_MAX = 2**31 - 1
+BU_BLOCK_LANES = 1024            # stage::kLanes * kThreads, csrc/bottomup.cu
+WALK_SLOTS_PER_LANE = 64         # stage::kWalkSlotsPerLane, csrc/stages.cuh
 
 
 def log(msg: str) -> None:
@@ -146,16 +164,33 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of fn() in ms, CUDA events around `reps` calls."""
+    """Mean device time of fn() in ms: CUDA events around `reps` calls,
+    queued behind a `torch.cuda._sleep` that outlasts the host's queueing
+    of them, so that the events read the device's work and not the
+    wrapper's host work.  The sleep is sized from one untimed pass (twice
+    its host time, plus 1 ms, at 2 GHz) and quadrupled while the device
+    reached the first call before the host had queued the last (at most
+    three tries: a fn that synchronises itself is read as it is)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sleep_s = 2 * (time.perf_counter() - t0) + 1e-3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_s * 2e9))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            break
+        sleep_s *= 4
     return start.elapsed_time(end) / reps
 
 
@@ -209,6 +244,32 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms}
+
+
+def block_span_tensor(torch, start, E, cumul, total):
+    """The row slots k_last - k_first that each kernel block of B7 / B9
+    (BU_BLOCK_LANES lanes) spans over the value-clipped cumul of one chunk,
+    as stage 1 (`stage::workload_map_block`) meets them: (blocks,) int64."""
+    dev = cumul.device
+    cc = torch.where(cumul < total, cumul, I32_MAX).to(torch.int32)
+    first = start + torch.arange(0, E, BU_BLOCK_LANES, device=dev,
+                                 dtype=torch.int32)
+    last = (first + BU_BLOCK_LANES - 1).clamp(max=start + E - 1)
+    k = [(torch.searchsorted(cc, g, right=True, out_int32=True) - 1)
+         .clamp(min=0) for g in (first, last)]
+    return (k[1] - k[0]).long()
+
+
+def block_spans(torch, start, E, cumul, total) -> dict:
+    """`block_span_tensor` summed up: its mean and max, the blocks whose
+    span passes WALK_SLOTS_PER_LANE slots a lane and so search by lane, and
+    the slots the other blocks walk (each one cumul read, beside the bound,
+    which counts only the rows that own a live lane)."""
+    span = block_span_tensor(torch, start, E, cumul, total)
+    search = span > WALK_SLOTS_PER_LANE * BU_BLOCK_LANES
+    return {"blocks": span.numel(), "mean": float(span.float().mean()),
+            "max": int(span.max()), "search_blocks": int(search.sum()),
+            "walked_slots": int(span[~search].sum())}
 
 
 class Phases:
@@ -322,8 +383,9 @@ def stage_cases():
     return torch_stage_cases
 
 
-def parity_stage_cases(torch, dev, K) -> None:
-    """Phase 3 for B1 and B8: the stage stress cases, bit for bit."""
+def parity_stage_cases(torch, dev, K, KB) -> None:
+    """Phase 3 for B1, B8, B7 and B9: the stage stress cases, bit for
+    bit."""
     SC = stage_cases()
     for name in SC.EXPAND_CASES:
         c = SC.expand_case(name)
@@ -339,6 +401,25 @@ def parity_stage_cases(torch, dev, K) -> None:
         log(f"[3 parity] expand_chunk + expand_chunk_values stage case "
             f"{name} start={start} E={E} tile {K.pick_tile(E, 512)}: "
             f"max_abs_err {err}")
+    for name in SC.BOTTOMUP_CASES:
+        c = SC.bottomup_case(name)
+        start, E, block = c["start"], c["E"], c["block"]
+        args = SC.bottomup_args(c, dev)
+        err = check_equal(torch, f"bottomup_chunk {name}",
+                          KB.bottomup_chunk(start, E, *args, block=block),
+                          KB.plain_bottomup_chunk(start, E, *args,
+                                                  block=block))
+        args = SC.bottomup_args(c, dev, values=True)
+        err += check_equal(
+            torch, f"bottomup_chunk_values {name}",
+            KB.bottomup_chunk_values(start, E, *args, block=block),
+            KB.plain_bottomup_chunk_values(start, E, *args, block=block))
+        span = block_spans(torch, start, E, args[0], args[1])
+        log(f"[3 parity] bottomup_chunk + bottomup_chunk_values stage case "
+            f"{name} start={start} E={E} total {c['total']} block {block}: "
+            f"row slots a kernel block spans mean {span['mean']:.1f} max "
+            f"{span['max']}, {span['search_blocks']} of {span['blocks']} "
+            f"blocks search by lane; max_abs_err {err}")
     torch.cuda.synchronize()
 
 
@@ -690,6 +771,14 @@ def run_values_direction(torch, args, graph, vals, kernels, report, phases):
         f"{n_cols} hits {int(kern[3].sum())}: max_abs_err {err}; kernel "
         f"{b_ms:.4f} ms, plain {b_plain:.4f} ms, bound "
         f"{kernels[-1]['bound_ms']:.4f} ms ({b_bytes} B)")
+    span = block_spans(torch, start, E, bargs[0], btotal)
+    log(f"[10b spans] bottomup_chunk_values real chunk: {E} lanes ({live} "
+        f"live) in {span['blocks']} blocks of {BU_BLOCK_LANES}, rows {rows};"
+        f" row slots a block spans mean {span['mean']:.1f} max "
+        f"{span['max']}; {span['search_blocks']} blocks search by lane, the "
+        f"rest walk {span['walked_slots']} slots "
+        f"({4 * span['walked_slots']} B of cumul beside the bound)")
+    report["b9_spans"] = dict(span, rows=rows, live=live, lanes=E)
     del tap, bargs, kern
     phases.end("10b parity")
 
@@ -1060,6 +1149,8 @@ def main() -> int:
                     help="R-MAT SCALE of the delta-codec phase (8x8 grid; "
                          "22 gives S = 65536, the codec's limit)")
     ap.add_argument("--delta-edge-chunk", type=int, default=1 << 20)
+    ap.add_argument("--card-cpu-scale", type=int, default=10,
+                    help="R-MAT SCALE of the card-against-CPU phase")
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
@@ -1148,10 +1239,18 @@ def main() -> int:
                           pout + (pcnt,))
         log(f"[3 parity] compact_rows random N={N} S={S}: max_abs_err {err}")
     del rnd, deg, col_off, row_idx, front, visited, cumul, words
-    parity_stage_cases(torch, dev, K)
+    parity_stage_cases(torch, dev, K, KB)
     parity_random_dir(torch, dev, gen, KF, KB)
     parity_random_values(torch, dev, gen, F, K, KB, KF)
     phases.end("3 parity")
+
+    # -- 13. the card against the CPU path -----------------------------------
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_card_vs_cpu
+    report["card_vs_cpu"] = torch_card_vs_cpu.run(
+        dev, scale=args.card_cpu_scale, seed=args.seed, quick=True,
+        log=lambda m: log(f"[13 card-cpu] {m}"))
+    phases.end("13 card-cpu")
 
     # -- 4. the full-size top-down run ---------------------------------------
     R, C = (int(x) for x in args.grid.lower().split("x"))
@@ -1550,6 +1649,14 @@ def main() -> int:
         f"{int(kern[2].sum())}: max_abs_err {err}; kernel {b_ms:.4f} ms, "
         f"plain {b_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms "
         f"({b_bytes} B)")
+    span = block_spans(torch, start, E, bcumul, btotal)
+    log(f"[7b spans] bottomup_chunk real chunk: {E} lanes ({live} live) in "
+        f"{span['blocks']} blocks of {BU_BLOCK_LANES}, rows {rows}; row slots"
+        f" a block spans mean {span['mean']:.1f} max {span['max']}; "
+        f"{span['search_blocks']} blocks search by lane, the rest walk "
+        f"{span['walked_slots']} slots ({4 * span['walked_slots']} B of cumul"
+        f" beside the bound)")
+    report["b7_spans"] = dict(span, rows=rows, live=live, lanes=E)
     del pack_tap, unpack_tap, bu_tap, mask, uwords, bargs, kern, r_out, \
         c_out, bcumul, btotal, bwords
     phases.end("7b parity")

@@ -1,8 +1,10 @@
 """Inputs that stress the stages of the fused expand kernels (B1
-`expand_chunk`, B8 `expand_chunk_values`) and of B11 `visited_filter`,
-made with numpy from one seed.
+`expand_chunk`, B8 `expand_chunk_values`), of the fused bottom-up kernels
+(B7 `bottomup_chunk`, B9 `bottomup_chunk_values`) and of B11
+`visited_filter`, made with numpy from one seed.
 
-Stage 1 maps a block of consecutive edge ids to frontier slots
+Stage 1 maps a block of consecutive edge ids to frontier slots, or to row
+slots over the value-capped masked-degree cumsum in the bottom-up kernels
 (`stage::workload_map_block` in `src/repro_torch/csrc/stages.cuh`); stage
 3 dedups a tile through a hash table in shared memory (`stage::
 filter_tile`).  The cases aim at what each could get wrong:
@@ -22,6 +24,27 @@ filter_tile`).  The cases aim at what each could get wrong:
     front_total_0  an empty frontier
     ragged         E = 1000 from start 37: n_lanes % 256 != 0 for B8
 
+  BOTTOMUP_CASES (B7 and B9; start, chunk length E, frontier block size;
+  a kernel block maps 1024 lanes)
+    zero_run       a visited (zero-width) run of 1500 rows, longer than a
+                   block's lanes
+    tail_run       the flat tail at and past the live total meeting a
+                   zero-width run, in a chunk straddling the total
+    wide_row       one row of degree 5000, spanning many blocks
+    mostly_visited 99 % of 120000 rows visited: a block walks ~26000
+                   slots, far more than its lanes, the chunk straddling
+                   the live total
+    sparse_live    99.8 % of 400000 rows visited: a block spans ~130000
+                   slots, past the walk limit (the lane searches), the
+                   chunk straddling the live total
+    straddle       a chunk straddling the live total
+    past_total     a chunk wholly past it
+    total_0        every row visited: total = 0, every lane masked
+    ragged         E = 1000 from start 37 (E % 1024 and E % 256 != 0)
+    block_37       frontier blocks of 37 columns (block % 32 != 0)
+    empty_frontier no frontier bit set
+    full_frontier  every frontier bit set
+
   FILTER_CASES (B11, at each tile of FILTER_TILES, 4 tiles of lanes)
     one_vertex     every valid lane carries the same unvisited vertex
     congruent      vertices congruent modulo the tile's table size
@@ -30,8 +53,10 @@ filter_tile`).  The cases aim at what each could get wrong:
     all_clear      no visited bit set, 40 distinct vertices a tile
 
 The tests hold the port's plain versions to the JAX package's Pallas
-kernels on these inputs (CPU) and the kernels to the plain versions (on
-the card, tests/test_torch_gpu.py and chip_smoke.py phases 3 and 12).
+kernels on these inputs (CPU: B1 and B7 in tests/test_torch_kernels.py, B8
+and B9 in tests/test_torch_values.py, B11 in tests/test_torch_stages.py)
+and the kernels to the plain versions (on the card, tests/test_torch_gpu.py
+and chip_smoke.py phases 3 and 12).
 """
 from __future__ import annotations
 
@@ -42,6 +67,9 @@ EXPAND_CASES = ("one_vertex", "congruent", "all_visited", "all_clear",
                 "tile_1", "tile_3", "tile_384", "zero_run", "wide_slot",
                 "straddle", "past_total", "front_total_0", "ragged")
 EXPAND_TILES = {"tile_1": 1, "tile_3": 3, "tile_384": 384}
+BOTTOMUP_CASES = ("zero_run", "tail_run", "wide_row", "mostly_visited",
+                  "sparse_live", "straddle", "past_total", "total_0", "ragged", "block_37",
+                  "empty_frontier", "full_frontier")
 FILTER_CASES = ("one_vertex", "congruent", "extremes", "all_visited",
                 "all_clear")
 FILTER_TILES = (64, 128, 256, 512, 1024)
@@ -134,6 +162,74 @@ def expand_case(name: str, seed: int = 0) -> dict:
     case.update(name=name, start=start, E=E, visited=visited,
                 words=pack_words(visited))
     return case
+
+
+def bottomup_case(name: str, seed: int = 0) -> dict:
+    """One BOTTOMUP_CASES input: numpy arrays row_off, col_idx, cumul (the
+    exclusive cumsum of the row degrees with visited rows zeroed), words
+    (the frontier bitmap of R = 3 blocks, int32 bit patterns), dense_pay;
+    ints total (= cumul[-1]), block, start, E."""
+    assert name in BOTTOMUP_CASES, name
+    rng = np.random.default_rng([seed, BOTTOMUP_CASES.index(name)])
+    nrl, block, p_visited, p_front, start, E = 4000, 1000, 0.3, 0.4, 0, 4096
+    if name == "mostly_visited":
+        nrl, p_visited, E = 120_000, 0.99, 6144
+    elif name == "sparse_live":
+        nrl, p_visited = 400_000, 0.998
+    elif name == "block_37":
+        block = 37
+    elif name == "empty_frontier":
+        p_front = 0.0
+    elif name == "full_frontier":
+        p_front = 1.0
+    elif name == "ragged":
+        start, E = 37, 1000
+    elif name == "wide_row":
+        E = 8192
+    deg = rng.integers(0, 9, size=nrl)
+    visited = rng.random(nrl) < p_visited
+    if name == "zero_run":
+        visited[1000:2500] = True
+    elif name == "tail_run":
+        visited[nrl - 1500:] = True       # the live total ends before them
+        deg[nrl - 1501] = 0               # and one unvisited zero-degree row
+    elif name == "wide_row":
+        deg[10], visited[10] = 5000, False
+    elif name == "total_0":
+        visited[:] = True
+    ncl = 3 * block
+    row_off = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col_idx = rng.integers(0, ncl, size=int(row_off[-1]) + 7) \
+        .astype(np.int32)
+    cumul = np.concatenate([[0], np.cumsum(np.where(visited, 0, deg))]) \
+        .astype(np.int32)
+    total = int(cumul[-1])
+    if name in ("tail_run", "straddle"):
+        start = max(total - 1500, 0)
+    elif name == "past_total":
+        start = total + 100
+    front = (rng.random((3, block)) < p_front).reshape(-1)
+    W = (block + 31) // 32
+    words = np.zeros(3 * W, np.uint32)
+    for c in np.flatnonzero(front):
+        blk, off = c // block, c % block
+        words[blk * W + (off >> 5)] |= np.uint32(1) << np.uint32(off & 31)
+    dense_pay = rng.integers(-5, I32_MAX, size=ncl).astype(np.int32)
+    return dict(name=name, row_off=row_off, col_idx=col_idx, cumul=cumul,
+                total=total, words=words.view(np.int32),
+                dense_pay=dense_pay, block=block, start=start, E=E)
+
+
+def bottomup_args(case: dict, device, values: bool = False):
+    """B7's tensor arguments after (start, E): (cumul, total, row_off,
+    col_idx, words), and dense_pay after them for B9 (`values`), on
+    `device`."""
+    import torch
+    t = {k: torch.from_numpy(case[k]).to(device)
+         for k in ("cumul", "row_off", "col_idx", "words", "dense_pay")}
+    total = torch.tensor(case["total"], dtype=torch.int32, device=device)
+    args = (t["cumul"], total, t["row_off"], t["col_idx"], t["words"])
+    return args + (t["dense_pay"],) if values else args
 
 
 def filter_case(name: str, tile: int, seed: int = 0) -> dict:

@@ -235,9 +235,14 @@ class GraphSession:
         running the roots one by one.  A direction-enabled session also
         returns `directions`, the per-level trace ((max_levels,) or
         (B, max_levels) int32: -1 unused, 0 top-down, 1 bottom-up).
-        validate=True runs the Graph500 rules
-        (`core.validate.validate_bfs`) on every root's output against the
-        graph's edge list and raises AssertionError on any violation."""
+
+        validate: False (default) | True | (2, E) edge array (numpy or
+        tensor).  Either of the last two runs the Graph500 rules
+        (`core.validate.validate_bfs`) on every root's output and raises
+        AssertionError on any violation: True against the graph's own
+        edge list and its cached `EdgeIndex`, an array against that array,
+        moved to the graph's device, with an `EdgeIndex` of its own that
+        is not cached."""
         check_vertex_ids(roots, self.graph.n, "roots")
         roots_np = _host_ids(roots)
         if roots_np.ndim > 1:
@@ -250,12 +255,15 @@ class GraphSession:
             out = self.engine.run_batch(self.graph.csc, roots_np.tolist(),
                                         self.extra)
             levels, preds = list(out.level), list(out.pred)
-        if validate:
+        if validate is not False and validate is not None:
             n = self.graph.n
-            index = self.graph.edge_index()
+            if isinstance(validate, bool):
+                edges, index = self.graph.edges, self.graph.edge_index()
+            else:
+                edges = _edge_tensor(validate, self.graph.device)
+                index = EdgeIndex(edges, n)
             for root, lv, pr in zip(np.atleast_1d(roots_np), levels, preds):
-                validate_bfs(self.graph.edges, lv[:n], pr[:n], int(root),
-                             index=index)
+                validate_bfs(edges, lv[:n], pr[:n], int(root), index=index)
         return out
 
     # ------------------------------------------------------------------

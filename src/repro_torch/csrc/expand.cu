@@ -21,8 +21,9 @@
 // because the VPU has no cheap scalar gathers.  Here a block takes
 // stage::kLanes consecutive tiles, thread t lane t of each, and maps its
 // gids with `stage::workload_map_block`: two searches by one warp, a
-// coalesced walk over the slots the block spans and a max-scan, in place
-// of a binary search per thread.  Stage 3 claims into a hash table in
+// coalesced walk over the slots the block spans and a max-scan (a search
+// per lane where the span is many times the lanes), in place of a binary
+// search per thread.  Stage 3 claims into a hash table in
 // shared memory per tile (`stage::filter_tile`), O(1) expected work a lane
 // in place of a scan of the tile.  The kLanes lanes of a thread share the
 // block's search and barriers and keep their loads in flight together.  A

@@ -3,12 +3,13 @@
 // them fused, stages.cu (B10, B11) runs them as standalone ops.
 //
 // Stage 1 has two forms.  `workload_map` is one binary search per thread,
-// for lanes that carry any sorted gids (B10) or a value cap (B7, B9).
-// `workload_map_block` is the block-cooperative form for a block of
-// consecutive gids (B1, B8): two searches per block, then a walk over the
-// frontier slots the block spans.  Stage 3, `filter_tile`, claims into a
-// hash table in shared memory (B1, B11).  The block forms give each thread
-// kLanes lanes.
+// for lanes that carry any sorted gids (B10).  `workload_map_block` is the
+// block-cooperative form for a block of consecutive gids (B1, B8 over the
+// frontier's cumsum; B7, B9 over the value-capped cumsum of every local
+// row): two searches per block, then a walk over the slots the block
+// spans, or, where that span is many times the block's lanes, a search
+// per lane inside it.  Stage 3, `filter_tile`, claims into a hash table in
+// shared memory (B1, B11).  The block forms give each thread kLanes lanes.
 //
 // The words are the uint32 visited bitmap as int32 bit patterns; the
 // kernels read them as unsigned, so the test shifts them as unsigned.
@@ -31,9 +32,9 @@ __device__ __forceinline__ int clip_by_value(int x, int cap) {
 //   max{l in [0, n) : clip_by_value(cumul[l], cap) <= gid}, 0 where none,
 // over a non-decreasing cumul; the default cap reads cumul as it is.  One
 // independent binary search per thread, log2(n) dependent loads: the form
-// for gids that are sorted but not consecutive (B10) and for the bottom-up
-// kernels' value cap (B7, B9).  Neighbouring lanes share most of their
-// probes, so after the first probes they hit in L1/L2.
+// for gids that are sorted but not consecutive (B10).  Neighbouring lanes
+// share most of their probes, so after the first probes they hit in
+// L1/L2.
 __device__ __forceinline__ int workload_map(const int* __restrict__ cumul,
                                             int n, int gid,
                                             int cap = INT_MAX) {
@@ -46,18 +47,20 @@ __device__ __forceinline__ int workload_map(const int* __restrict__ cumul,
 }
 
 // The two searches of `workload_map_block`, run by the first `nl` lanes
-// of warp 0 together (mask: those lanes).  Each round every lane probes
-// one point of each range, lane 0 the range's low end, and a ballot keeps
-// the last point that is <= the target: ceil(log_nl(n)) rounds of
-// dependent loads in place of log2(n), 5 for a 2^25-slot cumul.  The
-// points that are <= the target form a prefix of the lanes, because
-// cumul does not decrease.
+// of warp 0 together (mask: those lanes), each `workload_map` with the
+// same cap.  Each round every lane probes one point of each range, lane 0
+// the range's low end, and a ballot keeps the last point whose clipped
+// value is <= the target: ceil(log_nl(n)) rounds of dependent loads in
+// place of log2(n), 5 for a 2^25-slot cumul.  The points that pass form a
+// prefix of the lanes, because the clipped cumul does not decrease either
+// (once an entry reaches the cap, every later one does).
 __device__ __forceinline__ void warp_map2(const int* __restrict__ cumul,
                                           int n, int ga, int gb, int nl,
-                                          unsigned mask, int& ka, int& kb) {
+                                          unsigned mask, int& ka, int& kb,
+                                          int cap = INT_MAX) {
   if (nl == 1) {
-    ka = workload_map(cumul, n, ga);
-    kb = workload_map(cumul, n, gb);
+    ka = workload_map(cumul, n, ga, cap);
+    kb = workload_map(cumul, n, gb, cap);
     return;
   }
   const int lane = threadIdx.x & 31;
@@ -67,8 +70,10 @@ __device__ __forceinline__ void warp_map2(const int* __restrict__ cumul,
     const int sb = (hi_b - lo_b + nl - 1) / nl;
     const long long pa = lo_a + (long long)lane * sa;
     const long long pb = lo_b + (long long)lane * sb;
-    const bool ta = lane == 0 || (pa < hi_a && cumul[pa] <= ga);
-    const bool tb = lane == 0 || (pb < hi_b && cumul[pb] <= gb);
+    const bool ta =
+        lane == 0 || (pa < hi_a && clip_by_value(cumul[pa], cap) <= ga);
+    const bool tb =
+        lane == 0 || (pb < hi_b && clip_by_value(cumul[pb], cap) <= gb);
     lo_a += (31 - __clz(__ballot_sync(mask, ta))) * sa;
     lo_b += (31 - __clz(__ballot_sync(mask, tb))) * sb;
     hi_a = min(lo_a + sa, hi_a);
@@ -91,26 +96,54 @@ __host__ __device__ constexpr size_t workload_map_block_shmem(int threads) {
   return (size_t)kLanes * threads * sizeof(int);
 }
 
+// Spanned slots a lane of the block that `workload_map_block` walks
+// before its lanes search by themselves instead (65536 slots for 1024
+// lanes): past it, span / blockDim.x walk rounds cost more than log2(span)
+// dependent probes a lane.  64 was the fastest of 0 (always search), 8,
+// 16, 32, 64, 128 and no limit on the bottom-up BFS calls of an R-MAT
+// SCALE 26 graph (scripts/torch_bottomup_designs.py, PERF.md).
+constexpr int kWalkSlotsPerLane = 64;
+
 // Stage 1 for a block whose lane i = j * blockDim.x + t carries gid =
 // g0 + i, i < n_live (1 <= n_live <= kLanes * blockDim.x); k[j] is lane
 // i's
-//   max{l in [0, n) : cumul[l] <= gid}, 0 where none,
-// equal to `workload_map` on every such lane (a lane past n_live gets
-// some slot in [0, n)).  The gids are consecutive, so their k form one
-// non-decreasing run from k_first = k(g0) to k_last = k(g0 + n_live - 1).
-// Warp 0 finds both (`warp_map2`); the block then walks the slots l in
-// (k_first, k_last] with coalesced loads, each writing l at cumul[l] - g0
-// in `kmap` (shared, kLanes * blockDim.x ints) with atomicMax: a run of
-// zero-degree slots shares one cumul value, and the map takes the last
-// slot of the run.  An inclusive max-scan over the block seeded with
-// k_first gives each lane its k: each thread scans kLanes consecutive
-// entries, the threads' maxima are scanned with warp shuffles and one
-// pass across warps.  Work per block is O(lanes + span); over a chunk
-// O(lanes + frontier slots), in place of log2(n) probes a lane.  Every
-// thread of the block must call it: it synchronises the block.
+//   max{l in [0, n) : clip_by_value(cumul[l], cap) <= gid}, 0 where none,
+// equal to `workload_map` with the same cap on every such lane (a lane
+// past n_live gets some slot in [0, n)).  The gids are consecutive, so
+// their k form one non-decreasing run from k_first = k(g0) to k_last =
+// k(g0 + n_live - 1).  Warp 0 finds both (`warp_map2`); then, by the span
+// k_last - k_first:
+//  - 0: one slot holds every lane, or the block lies wholly at or past
+//    the cap: every lane takes k_first, with no walk;
+//  - up to kWalkSlotsPerLane slots a lane: the block walks the slots l in
+//    (k_first, k_last] with coalesced loads, kLanes slots a thread a
+//    round, and the last slot of each run of equal values writes l at
+//    cumul[l] - g0 in `kmap` (shared, kLanes * blockDim.x ints).  A run
+//    of zero-width slots shares one value and the map takes its last
+//    slot; only that slot writes the entry, so a plain store does, where
+//    an atomicMax from every slot of the run would serialise on one
+//    address.  An inclusive max-scan over the block seeded with k_first
+//    gives each lane its k: each thread scans kLanes consecutive entries,
+//    the threads' maxima are scanned with warp shuffles and one pass
+//    across warps;
+//  - wider (most slots zero-width, as late in a bottom-up search, where one
+//    block can span millions of slots): each lane runs a binary search of
+//    its own over [k_first, k_last], log2(span) dependent probes, all
+//    lanes in the same steps.
+// Work per block is O(lanes + span) while the block walks; over a chunk at
+// most one read of the cumul slots it spans.
+// Why the cap leaves all of this exact: the clipped cumul still does not
+// decrease (once an entry reaches the cap, every later one does); every
+// slot l in (k_first, k_last] has clip_by_value(cumul[l], cap) <=
+// g0 + n_live - 1 < INT_MAX (the wrappers keep every gid below
+// INT32_MAX), so there cumul[l] is below the cap and equals its clipped
+// value: the walk and the lane searches read cumul as it is, and the kmap
+// index cumul[l] - g0 stays in [1, n_live - 1].  A lane at or past the cap
+// inside the block finds every such slot <= its gid and takes k_last.
+// Every thread of the block must call it: it synchronises the block.
 __device__ __forceinline__ void workload_map_block(
     const int* __restrict__ cumul, int n, int g0, int n_live, int* kmap,
-    int (&k)[kLanes]) {
+    int (&k)[kLanes], int cap = INT_MAX) {
   __shared__ int k_ends[2];
   __shared__ int warp_max[32];
   const int t = threadIdx.x, threads = blockDim.x;
@@ -122,7 +155,7 @@ __device__ __forceinline__ void workload_map_block(
   for (int j = 0; j < kLanes; ++j) kmap[j * threads + t] = -1;
   if (warp == 0) {
     int ka, kb;
-    warp_map2(cumul, n, g0, g0 + (n_live - 1), in_warp, wmask, ka, kb);
+    warp_map2(cumul, n, g0, g0 + (n_live - 1), in_warp, wmask, ka, kb, cap);
     if (lane == 0) {
       k_ends[0] = ka;
       k_ends[1] = kb;
@@ -130,9 +163,43 @@ __device__ __forceinline__ void workload_map_block(
   }
   __syncthreads();
   const int k_first = k_ends[0], k_last = k_ends[1];
-  // each walked slot has g0 < cumul[l] <= g0 + n_live - 1
-  for (int l = k_first + 1 + t; l <= k_last; l += threads) {
-    atomicMax(&kmap[cumul[l] - g0], l);
+  if (k_first == k_last) {
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) k[j] = k_first;
+    return;
+  }
+  if (k_last - k_first > kWalkSlotsPerLane * kLanes * threads) {
+    int gid[kLanes];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      gid[j] = g0 + min(j * threads + t, n_live - 1);
+      k[j] = k_first;
+    }
+    // the answer lies in [k[j], k[j] + len - 1]; the steps depend on len
+    // alone, so the kLanes searches keep their probes in flight together
+    for (int len = k_last - k_first + 1; len > 1;) {
+      const int half = len >> 1;
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        if (cumul[k[j] + half] <= gid[j]) k[j] += half;
+      }
+      len -= half;
+    }
+    return;
+  }
+  for (int l0 = k_first + 1 + t; l0 <= k_last; l0 += kLanes * threads) {
+    int v[kLanes], next[kLanes];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const int l = l0 + j * threads;
+      v[j] = l <= k_last ? cumul[l] : 0;
+      next[j] = l < k_last ? cumul[l + 1] : INT_MIN;
+    }
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const int l = l0 + j * threads;
+      if (l <= k_last && next[j] != v[j]) kmap[v[j] - g0] = l;
+    }
   }
   __syncthreads();
   int part[kLanes];

@@ -174,3 +174,49 @@ def test_validate_bfs_and_teps(graph_data):
     pred[v] = fake
     with pytest.raises(AssertionError, match="tree edge not in graph"):
         validate_bfs(te, out.level, pred, int(roots[0]), index=index)
+
+
+def _without_tree_edge(edges, level, root):
+    """The edge list with every copy of one tree edge (both directions)
+    removed: root to a vertex at level 1, whose parent is the root on every
+    grid."""
+    v = int(np.flatnonzero(level == 1)[0])
+    p = root
+    drop = ((edges[0] == p) & (edges[1] == v)) | \
+        ((edges[0] == v) & (edges[1] == p))
+    return np.ascontiguousarray(edges[:, ~drop])
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2)])
+def test_validate_takes_an_edge_array(graph_data, grid):
+    """bfs(validate=) takes False, True or a (2, E) edge array, numpy or
+    tensor, scalar root and batch alike, as the JAX session does
+    (tests/test_algos.py::test_validate_flag_runs_graph500_rules); an array
+    with a tree edge removed raises AssertionError, in both packages; an
+    array's EdgeIndex is not cached on the graph."""
+    edges, roots = graph_data
+    graph = DistGraph.from_edges(edges, BFSConfig(grid=grid), device="cpu",
+                                 n=N)
+    sess = graph.session()
+    one = sess.bfs(int(roots[0]), validate=edges)
+    sess.bfs(roots, validate=torch.from_numpy(edges.copy()))
+    sess.bfs(roots, validate=False)
+    assert graph._edge_index is None
+    sess.bfs(int(roots[0]), validate=True)
+    assert graph._edge_index is not None
+    bad = _without_tree_edge(edges, one.level.numpy(), int(roots[0]))
+    for arg in (bad, torch.from_numpy(bad)):
+        with pytest.raises(AssertionError, match="tree edge not in graph"):
+            sess.bfs(int(roots[0]), validate=arg)
+        with pytest.raises(AssertionError, match="tree edge not in graph"):
+            sess.bfs(roots, validate=arg)
+    # the witness: the JAX session on the same edges and roots
+    jsess = JaxDistGraph.from_edges(edges, JaxBFSConfig(grid=(1, 1)),
+                                    n=N).session()
+    jone = jsess.bfs(int(roots[0]), validate=edges)
+    np.testing.assert_array_equal(np.asarray(jone.level), one.level.numpy())
+    jsess.bfs(roots, validate=edges)
+    with pytest.raises(AssertionError, match="tree edge not in graph"):
+        jsess.bfs(int(roots[0]), validate=bad)
+    with pytest.raises(AssertionError, match="tree edge not in graph"):
+        jsess.bfs(roots, validate=bad)

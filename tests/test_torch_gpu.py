@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card,
+and the card's whole path against the CPU's, which the CPU tests hold to
+the JAX package (`test_card_equals_cpu_path`).
 
 Marked `gpu`: without a CUDA device they skip (decided in a fixture).  This
 file imports no jax, so it runs where only torch is installed:
@@ -32,6 +34,7 @@ def _load_script(name):
 
 
 SC = _load_script("torch_stage_cases")
+CARD_VS_CPU = _load_script("torch_card_vs_cpu")
 
 
 @pytest.fixture
@@ -304,6 +307,44 @@ def test_expand_stage_cases_equal_plain_on_card(cuda_device, name):
     assert K.expand_chunk_values.launches == n0 + 1
     for p, k in zip(plain, kern):
         assert torch.equal(p, k.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SC.BOTTOMUP_CASES)
+def test_bottomup_stage_cases_equal_plain_on_card(cuda_device, name):
+    """B7 and B9 equal their plain versions bit for bit on the bottom-up
+    stage-1 stress cases (`scripts/torch_stage_cases.py`: zero-width runs
+    longer than a block, the flat tail past the live total, a row spanning
+    many blocks, 99 % and 99.8 % of rows visited (a long walk, the lane
+    searches), chunks straddling and wholly past the
+    live total, total = 0, n_lanes % 256 != 0, block % 32 != 0, empty and
+    full frontiers), masked lanes included, each launch counted."""
+    c = SC.bottomup_case(name)
+    start, E, block = c["start"], c["E"], c["block"]
+    for kern_fn, plain_fn, values in (
+            (KB.bottomup_chunk, KB.plain_bottomup_chunk, False),
+            (KB.bottomup_chunk_values, KB.plain_bottomup_chunk_values,
+             True)):
+        plain = plain_fn(start, E, *SC.bottomup_args(c, "cpu", values),
+                         block=block)
+        n0 = kern_fn.launches
+        kern = kern_fn(start, E, *SC.bottomup_args(c, cuda_device, values),
+                       block=block)
+        torch.cuda.synchronize()
+        assert kern_fn.launches == n0 + 1
+        for p, k in zip(plain, kern):
+            assert torch.equal(p, k.cpu())
+
+
+@pytest.mark.gpu
+def test_card_equals_cpu_path(cuda_device):
+    """The card against the CPU path, which the CPU tests hold to the JAX
+    package: one R-MAT SCALE 12 graph made with numpy, on a 2x2 grid; BFS
+    (scalar and batched) under every direction mode x codec x dedup, CC,
+    SSSP and multi-BFS top-down and direction-optimised, every output field
+    exact (`scripts/torch_card_vs_cpu.py`)."""
+    rows = CARD_VS_CPU.run(cuda_device, scale=12, log=lambda s: None)
+    assert len(rows) == 2 * 3 * 3 * 2 + 2 * 4
 
 
 @pytest.mark.gpu

@@ -9,7 +9,8 @@
   * the plain `compact_rows` equals `repro.kernels.fold.compact_rows(...,
     interpret=True)`;
   * the plain `bottomup_chunk` equals `repro.kernels.bottomup.
-    bottomup_chunk(..., interpret=True)` on (r, c, hit), every lane, and
+    bottomup_chunk(..., interpret=True)` on (r, c, hit), every lane (random
+    inputs and the BOTTOMUP_CASES of `scripts/torch_stage_cases.py`), and
     the JAX reference scan on its hit lanes; the plain `pack_bits` /
     `unpack_bits` equal `repro.kernels.fold.pack_bits` / `unpack_bits`
     (interpret mode), S % 32 != 0 included;
@@ -267,6 +268,32 @@ def test_plain_bottomup_chunk_equals_pallas(block, frontier_frac, chunk):
                                       np.where(hit, x, 0))
     live = start + np.arange(E) < total
     assert live.any() == (chunk != "zero_total") and not live.all()
+
+
+@pytest.mark.parametrize("name", SC.BOTTOMUP_CASES)
+def test_plain_bottomup_chunk_stage_cases_equal_pallas(name):
+    """The bottom-up stage-1 stress cases (a zero-width run longer than a
+    block, the flat tail past the live total meeting a zero-width run, one
+    row spanning many blocks, 99 % and 99.8 % of rows visited (a block
+    walking ~26000 slots, blocks past the walk limit), chunks straddling and
+    wholly past the live total, total = 0, a ragged chunk, block % 32 != 0,
+    an empty and a full frontier): every lane against the Pallas kernel."""
+    c = SC.bottomup_case(name)
+    start, E, block, total = c["start"], c["E"], c["block"], c["total"]
+    kern, _, got = _both_bottomup(c["row_off"], c["col_idx"], c["words"],
+                                  c["cumul"], total, start, E, block)
+    for k, g in zip(kern, got):              # every lane, masked included
+        np.testing.assert_array_equal(g, k)
+    live = start + np.arange(E) < total
+    assert live.any() == (name not in ("past_total", "total_0"))
+    assert live.all() == (name not in ("past_total", "total_0", "tail_run",
+                                       "straddle", "mostly_visited",
+                                       "sparse_live"))
+    if name == "ragged":
+        assert E % 256 != 0 and E % 1024 != 0
+    if name in ("empty_frontier", "full_frontier"):
+        assert got[2].all() == (name == "full_frontier") and got[2].any() \
+            == (name == "full_frontier")
 
 
 @pytest.mark.parametrize("S", [1, 31, 32, 33, 65])

@@ -5,7 +5,9 @@ JAX package in process, on random inputs.
     Pallas kernels (`interpret=True`) on every lane, masked lanes included,
     and the JAX reference formulas on valid / hit lanes; the plain
     `expand_chunk_values` also on the stage-1 stress cases of
-    `scripts/torch_stage_cases.py` (the kernel is held to it on the card);
+    `scripts/torch_stage_cases.py` (EXPAND_CASES), the plain
+    `bottomup_chunk_values` on its BOTTOMUP_CASES (the kernels are held to
+    them on the card);
   * the plain `delta_gaps` / `delta_positions` equal the Pallas kernels
     (interpret mode): all-invalid rows, full rows of S = 65536 (count = S,
     the header's two words), S % 32 != 0;
@@ -215,6 +217,31 @@ def test_plain_bottomup_chunk_values_equals_pallas(block, frontier_frac,
         block=block)
     for a, b in zip(tref, ref):
         eq(a, b)
+
+
+@pytest.mark.parametrize("name", SC.BOTTOMUP_CASES)
+def test_plain_bottomup_chunk_values_stage_cases_equal_pallas(name):
+    """The bottom-up stage-1 stress cases of `scripts/torch_stage_cases.py`
+    (zero-width runs, the flat tail past the live total, a row spanning many
+    blocks, 99 % and 99.8 % of rows visited, straddling / past / zero
+    totals, ragged
+    chunks, block % 32 != 0, empty and full frontiers): every lane of
+    (r, pay, addr, hit) against the Pallas kernel, masked lanes (pay =
+    dense_pay[0]) included."""
+    c = SC.bottomup_case(name)
+    start, E, block = c["start"], c["E"], c["block"]
+    gids = jnp.asarray(start + np.arange(E, dtype=np.int32))
+    kern = jax_bottomup_chunk_values(
+        gids, jnp.asarray(c["cumul"]), jnp.int32(c["total"]),
+        jnp.asarray(c["row_off"]), jnp.asarray(c["col_idx"]),
+        jnp.asarray(c["words"].view(np.uint32)), jnp.asarray(c["dense_pay"]),
+        block=block, interpret=True)
+    got = KB.bottomup_chunk_values(start, E, *SC.bottomup_args(c, CPU, True),
+                                   block=block)
+    for g, k in zip(got, kern):
+        eq(g, k)
+    masked = start + np.arange(E) >= c["total"]
+    assert (got[1].numpy()[masked] == c["dense_pay"][0]).all()
 
 
 # ----------------------------------------------------------------------------
