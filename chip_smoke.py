@@ -13,7 +13,11 @@ Phases, one line or more each on stdout:
                shared-memory summary);
   3. parity    each kernel against its plain torch version on the card, bit
                for bit, on random inputs (pack/unpack_bits with S % 32 != 0
-               and all-false / all-true masks; expand_chunk and
+               and all-false / all-true masks, and on the BITS_CASES of
+               scripts/torch_stage_cases.py: S % 32 == 16, S % 16 != 0,
+               one-word rows, the fold's density, views offset into their
+               buffers, each printing its form, both forms of each launched;
+               expand_chunk and
                expand_chunk_values on the stage stress cases of
                scripts/torch_stage_cases.py: one vertex on every lane,
                vertices congruent modulo the hash table, all-visited /
@@ -88,7 +92,8 @@ Phases, one line or more each on stdout:
                `bfs(roots[:dir_batch])` equals the scalar results; launch
                counts of B1, B2, B3, B4 and B7 must each be > 0;
   7b. parity   B3, B4 and B7 on one real call each captured from phase 7,
-               with time, plain time and bytes bound; for B7 the row slots
+               with time, plain time and bytes bound (for B3 and B4 the
+               form that ran and the share of the bound); for B7 the row slots
                each kernel block spans (mean, max), the blocks that search
                by lane and the slots the rest walk;
   8. dir-path  one root with expand, fold and bottomup = "reference": equal
@@ -423,18 +428,43 @@ def parity_stage_cases(torch, dev, K, KB) -> None:
     torch.cuda.synchronize()
 
 
+def parity_bits(torch, KF, what, mask, words, forms) -> str:
+    """B3 and B4 against their plain versions on (mask, words), bit for bit;
+    adds the forms that launched to `forms`; returns a log line's tail."""
+    S = mask.shape[1]
+    err = check_equal(torch, f"pack_bits {what}", (KF.pack_bits(mask),),
+                      (KF.plain_pack_bits(mask),))
+    pack_form = KF.pack_bits.last_form
+    bits = KF.unpack_bits(words, S)
+    err += check_equal(torch, f"unpack_bits {what}", (bits, bits),
+                       (KF.plain_unpack_bits(words, S), mask))
+    forms["pack_bits"].add(pack_form)
+    forms["unpack_bits"].add(KF.unpack_bits.last_form)
+    return (f"forms pack {pack_form}, unpack {KF.unpack_bits.last_form}; "
+            f"max_abs_err {err}")
+
+
 def parity_random_dir(torch, dev, gen, KF, KB) -> None:
-    """Phase 3 for B3, B4 and B7: random inputs, bit for bit."""
+    """Phase 3 for B3, B4 and B7: random inputs and the BITS_CASES of
+    scripts/torch_stage_cases.py, bit for bit, both forms of B3 and B4."""
+    forms = {"pack_bits": set(), "unpack_bits": set()}
     for N, S, p in ((8, 1 << 24, 0.3), (3, 1_000_003, 0.6), (2, 77, 0.0),
                     (5, 33, 1.0)):
         mask = torch.rand((N, S), generator=gen, device=dev) < p
-        words = KF.pack_bits(mask)
-        err = check_equal(torch, "pack_bits", (words,),
-                          (KF.plain_pack_bits(mask),))
-        err += check_equal(torch, "unpack_bits", (KF.unpack_bits(words, S),),
-                           (KF.plain_unpack_bits(words, S), mask))
+        tail = parity_bits(torch, KF, "random", mask,
+                           KF.plain_pack_bits(mask), forms)
         log(f"[3 parity] pack_bits + unpack_bits random N={N} S={S} p={p}: "
-            f"max_abs_err {err}")
+            f"{tail}")
+    SC = stage_cases()
+    for name in SC.BITS_CASES:
+        mask, words = SC.bits_args(SC.bits_case(name), dev)
+        N, S = mask.shape
+        tail = parity_bits(torch, KF, name, mask, words, forms)
+        log(f"[3 parity] pack_bits + unpack_bits stage case {name} N={N} "
+            f"S={S}: {tail}")
+    if any(f != {"vector", "general"} for f in forms.values()):
+        raise AssertionError(f"phase 3 did not launch both forms of B3 and "
+                             f"B4: {forms}")
     R, block = 2, (1 << 20) + 5                 # block % 32 != 0
     nrl = 2 * block
     deg = torch.randint(0, 17, (nrl,), generator=gen, device=dev,
@@ -1598,8 +1628,10 @@ def main() -> int:
         "src/repro/kernels/fold.py:144", dlaunches["pack_bits"], err, p_ms,
         p_plain, p_bytes))
     log(f"[7b parity] pack_bits real fold N={N} S={S} set "
-        f"{int(mask.sum())}: max_abs_err {err}; kernel {p_ms:.4f} ms, plain "
-        f"{p_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
+        f"{int(mask.sum())}: max_abs_err {err}; form "
+        f"{KF.pack_bits.last_form}, kernel {p_ms:.4f} ms, plain "
+        f"{p_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.5f} ms, "
+        f"{kernels[-1]['bound_ms'] / p_ms:.3f} of the bound")
 
     (uwords, uS), _ = unpack_tap.saved
     kern = KF.unpack_bits(uwords, uS)
@@ -1615,8 +1647,10 @@ def main() -> int:
         "src/repro/kernels/fold.py:170", dlaunches["unpack_bits"], err, u_ms,
         u_plain, u_bytes))
     log(f"[7b parity] unpack_bits real fold N={N} S={uS} set "
-        f"{int(kern.sum())}: max_abs_err {err}; kernel {u_ms:.4f} ms, plain "
-        f"{u_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
+        f"{int(kern.sum())}: max_abs_err {err}; form "
+        f"{KF.unpack_bits.last_form}, kernel {u_ms:.4f} ms, plain "
+        f"{u_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.5f} ms, "
+        f"{kernels[-1]['bound_ms'] / u_ms:.3f} of the bound")
 
     (start, E, *bargs), bkw = bu_tap.saved
     kern = KB.bottomup_chunk(start, E, *bargs, **bkw)

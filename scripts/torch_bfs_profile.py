@@ -15,6 +15,10 @@ default), connected components (`connected_components()`, its bitmap
 codec), or SSSP from that vertex.  Prints the search's wall time, the
 device-busy time (sum of the kernels' device time) and the idle share, and
 the ops with the most device time: what bounds the search today, in order.
+Under the bitmap codec it also splits the device time of
+`BitmapFold.encode` (wrapped in a profiler range here) by the ops it runs:
+the index arithmetic, the zeroed N*S `hits` buffer, its `index_add_`, the
+`ne` and B3 `pack_bits`.
 """
 from __future__ import annotations
 
@@ -26,6 +30,23 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ENCODE = "BitmapFold.encode"
+
+
+def encode_split(prof) -> dict:
+    """{op: [calls, device ms]} over the ENCODE ranges' child events: each
+    op's device time with its children's.  B3, launched through ctypes, is
+    not among them (its `cudaLaunchKernel` carries none of its time): read
+    it from its kernel row."""
+    split = {}
+    for ev in prof.events():
+        if ev.name != ENCODE:
+            continue
+        for ch in ev.cpu_children:
+            row = split.setdefault(ch.name, [0, 0.0])
+            row[0] += 1
+            row[1] += ch.device_time_total / 1e3
+    return split
 
 
 def main() -> int:
@@ -45,10 +66,19 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "..", "src"))
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.api import BFSConfig, DistGraph
+    from repro_torch.dist.exchange import BitmapFold
     from repro_torch.graphgen import rmat_edges
+
+    encode = BitmapFold.encode
+
+    def ranged_encode(*a, **kw):
+        with record_function(ENCODE):
+            return encode(*a, **kw)
+
+    BitmapFold.encode = staticmethod(ranged_encode)
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
@@ -95,11 +125,12 @@ def main() -> int:
         prof_s = time.perf_counter() - t0
     # the device's own events are the kernels (and copies/memsets); the
     # aten ops that launched them carry the same time again, so the busy
-    # time sums the device events only
+    # time sums the device events only, less the ENCODE range's own
+    # device-side span, which covers kernels counted already
     rows = [{"op": ev.key, "calls": ev.count,
              "device_ms": ev.self_device_time_total / 1e3}
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
+            if ev.device_type == DeviceType.CUDA and ev.key != ENCODE]
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
     directions = None if out.directions is None \
@@ -114,7 +145,7 @@ def main() -> int:
               "search_s": plain_s, "profiled_search_s": prof_s,
               "device_busy_ms": busy_ms,
               "idle_share": 1 - busy_ms / (prof_s * 1e3),
-              "top": rows[:args.top]}
+              "top": rows[:args.top], "encode": encode_split(prof)}
     print(f"device: {smi}")
     print(f"SCALE {args.scale} grid {R}x{C} edge_chunk {args.edge_chunk} "
           f"{args.algo} root {report['root']} {knobs}: {levels} levels, "
@@ -125,6 +156,12 @@ def main() -> int:
     for r in rows[:args.top]:
         print(f"  {r['device_ms']:10.2f} ms  {r['calls']:7d} calls  "
               f"{r['op'][:100]}")
+    if report["encode"]:
+        total = sum(ms for _, ms in report["encode"].values())
+        print(f"{ENCODE}: {total:.2f} device ms, by op:")
+        for op, (calls, ms) in sorted(report["encode"].items(),
+                                      key=lambda kv: -kv[1][1]):
+            print(f"  {ms:10.3f} ms  {calls:7d} calls  {op[:100]}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,7 +1,8 @@
 """Inputs that stress the stages of the fused expand kernels (B1
 `expand_chunk`, B8 `expand_chunk_values`), of the fused bottom-up kernels
-(B7 `bottomup_chunk`, B9 `bottomup_chunk_values`) and of B11
-`visited_filter`, made with numpy from one seed.
+(B7 `bottomup_chunk`, B9 `bottomup_chunk_values`), of B11
+`visited_filter` and the two forms of B3 `pack_bits` / B4 `unpack_bits`,
+made with numpy from one seed.
 
 Stage 1 maps a block of consecutive edge ids to frontier slots, or to row
 slots over the value-capped masked-degree cumsum in the bottom-up kernels
@@ -52,11 +53,25 @@ filter_tile`).  The cases aim at what each could get wrong:
     all_visited    every visited bit set
     all_clear      no visited bit set, 40 distinct vertices a tile
 
+  BITS_CASES (B3 and B4; an (N, S) mask and the (N, ceil(S/32)) words of
+  it, their pad bits past S random; `csrc/bits.cu` takes its vector form
+  when S % 16 == 0 and a row of bytes starts 16-byte aligned)
+    aligned        N = 8, S = 4096
+    half_word_tail S = 4112: the last word holds 16 bits, one 16-byte half
+    odd_s          S = 4099, S % 16 != 0: the general form
+    one_word_1/31/32  S = 1, 31 (general) and 32 (vector): one word a row
+    all_false      no bit set
+    all_true       every bit set, S = 4112: the pad bits stay 0
+    fold_density   N = 8, S = 8192 at p = 0.1725, the bitmap fold's density
+                   on the SCALE 26 direction-optimised search
+    offset_view    the mask a contiguous view 8 bytes into its buffer (pack
+                   takes the general form) and the words a view one word in
+
 The tests hold the port's plain versions to the JAX package's Pallas
-kernels on these inputs (CPU: B1 and B7 in tests/test_torch_kernels.py, B8
-and B9 in tests/test_torch_values.py, B11 in tests/test_torch_stages.py)
-and the kernels to the plain versions (on the card, tests/test_torch_gpu.py
-and chip_smoke.py phases 3 and 12).
+kernels on these inputs (CPU: B1, B7, B3 and B4 in
+tests/test_torch_kernels.py, B8 and B9 in tests/test_torch_values.py, B11
+in tests/test_torch_stages.py) and the kernels to the plain versions (on
+the card, tests/test_torch_gpu.py and chip_smoke.py phases 3 and 12).
 """
 from __future__ import annotations
 
@@ -73,6 +88,10 @@ BOTTOMUP_CASES = ("zero_run", "tail_run", "wide_row", "mostly_visited",
 FILTER_CASES = ("one_vertex", "congruent", "extremes", "all_visited",
                 "all_clear")
 FILTER_TILES = (64, 128, 256, 512, 1024)
+BITS_CASES = ("aligned", "half_word_tail", "odd_s", "one_word_1",
+              "one_word_31", "one_word_32", "all_false", "all_true",
+              "fold_density", "offset_view")
+MASK_OFFSET = 8                   # bytes: offset_view's mask is not aligned
 
 
 def table_slots(tile: int) -> int:
@@ -294,3 +313,53 @@ def filter_args(case: dict, device):
     import torch
     return tuple(torch.from_numpy(case[k]).to(device)
                  for k in ("v", "valid", "words"))
+
+
+def bits_case(name: str, seed: int = 0) -> dict:
+    """One BITS_CASES input: numpy mask ((N, S) bool) and words ((N, W)
+    int32, the packed mask with random pad bits past S); bool `view` for
+    offset_view."""
+    assert name in BITS_CASES, name
+    rng = np.random.default_rng([seed, BITS_CASES.index(name)])
+    N, S, p = 3, 4096, 0.3
+    if name in ("aligned", "fold_density"):
+        N = 8
+    if name in ("half_word_tail", "all_true"):
+        S = 4112
+    elif name == "odd_s":
+        S = 4099
+    elif name.startswith("one_word_"):
+        S, p = int(name.rsplit("_", 1)[1]), 0.5
+    elif name == "fold_density":
+        S, p = 8192, 0.1725
+    if name == "all_false":
+        p = 0.0
+    elif name == "all_true":
+        p = 1.0
+    mask = rng.random((N, S)) < p
+    W = (S + 31) // 32
+    padded = np.zeros((N, 32 * W), bool)
+    padded[:, :S] = mask
+    padded[:, S:] = rng.random((N, 32 * W - S)) < 0.5
+    words = np.packbits(padded, axis=1, bitorder="little").view("<u4") \
+        .astype(np.uint32).view(np.int32)
+    return dict(name=name, mask=mask, words=words,
+                view=name == "offset_view")
+
+
+def bits_args(case: dict, device):
+    """(mask, words) as tensors on `device`; for offset_view, contiguous
+    views MASK_OFFSET bytes and one word into buffers of their own."""
+    import torch
+    mask = torch.from_numpy(case["mask"])
+    words = torch.from_numpy(case["words"])
+    if not case["view"]:
+        return mask.to(device), words.to(device)
+    buf = torch.zeros(mask.numel() + 2 * MASK_OFFSET, dtype=torch.bool,
+                      device=device)
+    vmask = buf[MASK_OFFSET:MASK_OFFSET + mask.numel()].view(mask.shape)
+    vmask.copy_(mask)
+    wbuf = torch.zeros(words.numel() + 1, dtype=torch.int32, device=device)
+    vwords = wbuf[1:].view(words.shape)
+    vwords.copy_(words)
+    return vmask, vwords

@@ -139,21 +139,27 @@ def plain_unpack_bits(words, S: int):
     return F.unpack_bitmap(words, S)
 
 
-def _bits_launcher(name):
+def _launch_bits(name, *args):
+    """Launch kernel `name` of `csrc/bits.cu`; returns the form it chose:
+    "vector" (16-byte accesses, rows of bytes 16-byte aligned) or "general"
+    (a byte a thread)."""
     fn = getattr(build.library("bits"), f"{name}_launch")
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = ([p, p, i64, i64, p] if name == "pack_bits"
-                       else [p, p, i64, i64, i64, p])
+        form = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = ([p, p, i64, i64, p, form] if name == "pack_bits"
+                       else [p, p, i64, i64, i64, p, form])
         fn.restype = ctypes.c_int
-    return fn
+    vector = ctypes.c_int(0)
+    build.check(fn(*args, ctypes.byref(vector)), name)
+    return "vector" if vector.value else "general"
 
 
 def pack_bits(mask):
     """(N, S) bool -> (N, ceil(S/32)) int32 little-endian words, pad bits 0.
     The input is checked on every device; then CUDA tensors launch the
-    kernel (counted in `pack_bits.launches`) and CPU tensors run the plain
-    version."""
+    kernel (counted in `pack_bits.launches`, its form in
+    `pack_bits.last_form`) and CPU tensors run the plain version."""
     if mask.dim() != 2 or mask.dtype != torch.bool \
             or not mask.is_contiguous():
         raise ValueError(f"pack_bits: mask must be a contiguous (N, S) bool "
@@ -169,20 +175,21 @@ def pack_bits(mask):
         return words
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream(mask.device).cuda_stream
-        rc = _bits_launcher("pack_bits")(mask.data_ptr(), words.data_ptr(),
-                                         N, S, stream)
-    build.check(rc, "pack_bits")
+        pack_bits.last_form = _launch_bits(
+            "pack_bits", mask.data_ptr(), words.data_ptr(), N, S, stream)
     pack_bits.launches += 1
     return words
 
 
 pack_bits.launches = 0
+pack_bits.last_form = None
 
 
 def unpack_bits(words, S: int):
     """(N, W) int32 words -> (N, S) bool, W * 32 >= S.  The input is checked
     on every device; then CUDA tensors launch the kernel (counted in
-    `unpack_bits.launches`) and CPU tensors run the plain version."""
+    `unpack_bits.launches`, its form in `unpack_bits.last_form`) and CPU
+    tensors run the plain version."""
     if words.dim() != 2 or words.dtype != torch.int32 \
             or not words.is_contiguous() or words.shape[1] * 32 < S:
         raise ValueError(f"unpack_bits: words must be a contiguous (N, W) "
@@ -198,14 +205,15 @@ def unpack_bits(words, S: int):
         return bits
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = _bits_launcher("unpack_bits")(words.data_ptr(), bits.data_ptr(),
-                                           N, S, W, stream)
-    build.check(rc, "unpack_bits")
+        unpack_bits.last_form = _launch_bits(
+            "unpack_bits", words.data_ptr(), bits.data_ptr(), N, S, W,
+            stream)
     unpack_bits.launches += 1
     return bits
 
 
 unpack_bits.launches = 0
+unpack_bits.last_form = None
 
 
 def plain_delta_gaps(ts, valid):

@@ -143,6 +143,50 @@ def test_bits_and_bottomup_equal_plain_on_card(cuda_device, rng):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", SC.BITS_CASES)
+def test_bits_cases_equal_plain_on_card(cuda_device, name):
+    """pack_bits and unpack_bits equal their plain versions bit for bit on
+    the BITS_CASES of `scripts/torch_stage_cases.py` (S % 32 == 16, S % 16
+    != 0, one-word rows, all-false / all-true, the fold's density, views
+    offset into their buffers), each launch counted, each in the form its
+    rows pick: vector where S % 16 == 0 and a row of bytes starts 16-byte
+    aligned, else general."""
+    c = SC.bits_case(name)
+    mask, words = SC.bits_args(c, cuda_device)
+    S = mask.shape[1]
+    n0 = (KF.pack_bits.launches, KF.unpack_bits.launches)
+    kw = KF.pack_bits(mask)
+    kb = KF.unpack_bits(words, S)
+    torch.cuda.synchronize()
+    assert (KF.pack_bits.launches, KF.unpack_bits.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    want = torch.from_numpy(c["mask"])
+    assert torch.equal(kw.cpu(), KF.plain_pack_bits(want))
+    assert torch.equal(kb.cpu(), KF.plain_unpack_bits(words.cpu(), S))
+    assert torch.equal(kb.cpu(), want)
+    aligned = S % 16 == 0
+    assert KF.pack_bits.last_form == \
+        ("vector" if aligned and not c["view"] else "general")
+    assert KF.unpack_bits.last_form == ("vector" if aligned else "general")
+
+
+@pytest.mark.gpu
+def test_bits_cases_launch_both_forms(cuda_device):
+    """Over BITS_CASES each of pack_bits and unpack_bits launches both its
+    vector and its general form."""
+    forms = {"pack_bits": set(), "unpack_bits": set()}
+    for name in SC.BITS_CASES:
+        mask, words = SC.bits_args(SC.bits_case(name), cuda_device)
+        KF.pack_bits(mask)
+        forms["pack_bits"].add(KF.pack_bits.last_form)
+        KF.unpack_bits(words, mask.shape[1])
+        forms["unpack_bits"].add(KF.unpack_bits.last_form)
+    torch.cuda.synchronize()
+    assert forms == {"pack_bits": {"vector", "general"},
+                     "unpack_bits": {"vector", "general"}}
+
+
+@pytest.mark.gpu
 def test_value_kernels_equal_plain_on_card(cuda_device, rng):
     """expand_chunk_values and bottomup_chunk_values equal their plain
     versions, and each launch counts: an empty frontier, total = 0, a chunk

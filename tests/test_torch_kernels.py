@@ -13,7 +13,8 @@
     inputs and the BOTTOMUP_CASES of `scripts/torch_stage_cases.py`), and
     the JAX reference scan on its hit lanes; the plain `pack_bits` /
     `unpack_bits` equal `repro.kernels.fold.pack_bits` / `unpack_bits`
-    (interpret mode), S % 32 != 0 included;
+    (interpret mode), S % 32 != 0 included, and on the BITS_CASES of
+    `scripts/torch_stage_cases.py`;
   * CPU tensors take the plain version and launch nothing; "kernel" on the
     CPU raises.
 
@@ -308,6 +309,30 @@ def test_plain_pack_unpack_bits_equal_pallas(S, p, rng):
     tb = KF.unpack_bits(tw, S)
     np.testing.assert_array_equal(tb.numpy(), jb)
     np.testing.assert_array_equal(tb.numpy(), mask)
+
+
+@pytest.mark.parametrize("name", SC.BITS_CASES)
+def test_plain_pack_unpack_bits_stage_cases_equal_pallas(name):
+    """The plain pack / unpack equal the Pallas kernels (interpret mode) on
+    the inputs that drive both forms of the CUDA kernels
+    (`scripts/torch_stage_cases.py` BITS_CASES: S % 32 == 16, S % 16 != 0,
+    one-word rows, all-false / all-true, the fold's density, views offset
+    into their buffers); unpack ignores the words' random pad bits."""
+    c = SC.bits_case(name)
+    mask, words = SC.bits_args(c, "cpu")
+    N, S = mask.shape
+    assert mask.is_contiguous() and words.is_contiguous()
+    assert (mask.storage_offset(), words.storage_offset()) == \
+        ((SC.MASK_OFFSET, 1) if name == "offset_view" else (0, 0))
+    jw = np.asarray(jax_pack_bits(jnp.asarray(c["mask"]), interpret=True))
+    tw = KF.pack_bits(mask)
+    assert tw.shape == (N, (S + 31) // 32)
+    np.testing.assert_array_equal(tw.numpy().view(np.uint32), jw)
+    jb = np.asarray(jax_unpack_bits(jnp.asarray(c["words"].view(np.uint32)),
+                                    S, interpret=True))
+    tb = KF.unpack_bits(words, S)
+    np.testing.assert_array_equal(tb.numpy(), jb)
+    np.testing.assert_array_equal(tb.numpy(), c["mask"])
 
 
 def test_cpu_tensors_launch_nothing(rng):
