@@ -17,7 +17,12 @@ Phases, one line or more each on stdout:
                scripts/torch_stage_cases.py: S % 32 == 16, S % 16 != 0,
                one-word rows, the fold's density, views offset into their
                buffers, each printing its form, both forms of each launched;
-               expand_chunk and
+               compact_rows on random rows and on the COMPACT_CASES of the
+               same script: the exchange row, all-false / all-true rows,
+               counts at a kernel tile's edge, S % 16 != 0, S = 1, 600
+               short rows, densities 0.001 / 0.999, fills at INT32_MIN /
+               INT32_MAX, the slot-offset channel at N = 8, both forms
+               launched; expand_chunk and
                expand_chunk_values on the stage stress cases of
                scripts/torch_stage_cases.py: one vertex on every lane,
                vertices congruent modulo the hash table, all-visited /
@@ -55,14 +60,21 @@ Phases, one line or more each on stdout:
                and B2 must be > 0);
   3b. parity   B1 and B2 again on one real chunk and one real expand-
                exchange row captured from that run, with their time (CUDA
-               events) beside their plain versions' and their bytes bound;
+               events) beside their plain versions' and their bytes bound
+               (for B2 its form and share of the bound, beside a dense
+               read of its source channel);
   12. stages   right after 3b, on the same real chunk and resident graph:
                (a) B10 binsearch_map and B11 visited_filter against their
                plain versions, bit for bit, on random inputs (zero-degree
                runs in cumul, front_total = 0, chunks straddling the live
                total, n_cumul < 256, lanes below cumul[0], tiles 64, 256,
                512 and 1024, n_rows % 32 != 0, all-visited and all-clear
-               words, all-invalid lanes; the hash-claim stress cases of
+               words, all-invalid lanes; B10 on the BINSEARCH_CASES of
+               scripts/torch_stage_cases.py: consecutive gids, wide and
+               narrow gaps, repeats, tiles sorted but descending across
+               tiles, one tile spanning the whole cumul, lanes below
+               cumul[0] and past the live total, zero-degree runs; the
+               hash-claim stress cases of
                scripts/torch_stage_cases.py at tiles 64 to 1024: one
                vertex on every lane, vertices congruent modulo the table
                size, v = -1 / INT32_MIN / INT32_MAX); then, with the
@@ -80,7 +92,9 @@ Phases, one line or more each on stdout:
                py`'s rows, printed as one {"kernel_bench": [...]} line;
                B10 and B11 launched (> 0); then both on the real chunk:
                equal to their plain versions, time, plain time, bytes
-               bound, and for B10 the time of torch.searchsorted;
+               bound, and for B10 the time of torch.searchsorted, B10's
+               three times with the L2 flushed before each call (the
+               chunk's 33.6 MB would otherwise stay in the 50 MB L2);
   5. path      one root again with expand="reference", fold="reference":
                levels, preds, n_levels and edges_scanned equal the kernel
                path's;
@@ -95,7 +109,9 @@ Phases, one line or more each on stdout:
                with time, plain time and bytes bound (for B3 and B4 the
                form that ran and the share of the bound); for B7 the row slots
                each kernel block spans (mean, max), the blocks that search
-               by lane and the slots the rest walk;
+               by lane and the slots the rest walk; B2 on the bitmap
+               decode's compaction (the slot-offset channel, N = 8) as in
+               3b;
   8. dir-path  one root with expand, fold and bottomup = "reference": equal
                to the kernel path (levels, preds, n_levels, edges_scanned,
                directions); one root with direction="bottomup": levels and
@@ -110,7 +126,10 @@ Phases, one line or more each on stdout:
                roots)` equal to phase 4's per-vertex minimum, with k=2 the
                same masked to level <= 2; B8 launched (> 0);
   9b. parity   B8 on one real chunk of CC's first level: time, plain time,
-               bytes bound;
+               bytes bound; B2 on the values row of CC's second level (ids
+               and labels, N = 2) as in 3b.  B2 launches once for all the
+               channels of a call (up to four), so a values row counts one
+               launch;
   10. dir-val  the same programs direction-optimised (`direction=True`,
                bitmap codec): CC, 2 SSSP roots and the multi-BFS, each equal
                to phase 9 and running a bottom-up level; one SSSP root and
@@ -197,6 +216,76 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
             break
         sleep_s *= 4
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(torch, fn, reps: int = 10,
+                 flush_bytes: int = 128 << 20) -> float:
+    """Mean device time of fn() in ms with the L2 cache flushed before each
+    call: a `flush_bytes` buffer (past the H100's 50 MB L2) is written
+    between the calls, and CUDA events around each call alone read its
+    time; the calls are queued behind a device sleep as in `cuda_ms`."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        flush.fill_(i)
+        fn()
+    sleep_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(sleep_s * 2e9))
+    for i, (start, end) in enumerate(marks):
+        flush.fill_(i)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / reps
+
+
+def compact_bytes(mask, arrays) -> tuple:
+    """(bytes B2 must move on (mask, arrays), the dense count): 1 B of mask
+    a slot, 4 B out a slot per channel, 4 B in per kept slot of a source
+    channel (the dense count: per slot), nothing in for a SLOT_OFFSETS
+    channel, 4 B a row of counts."""
+    from repro_torch.kernels import fold as KF
+    N, S = mask.shape
+    kept = int(mask.sum())
+    reads = sum(a is not KF.SLOT_OFFSETS for a in arrays)
+    base = N * S + 4 * N * S * len(arrays) + 4 * N
+    return base + 4 * kept * reads, base + 4 * N * S * reads
+
+
+def time_compact(torch, what, mask, arrays, fills) -> dict:
+    """B2 on one real call: equal to its plain version, its time, its bound
+    and its form; logs a line and returns the numbers."""
+    from repro_torch.kernels import fold as KF
+    kern = KF.compact_rows(mask, arrays, fills)
+    form = KF.compact_rows.last_form
+    plain = KF.plain_compact_rows(mask, arrays, fills)
+    err = check_equal(torch, f"compact_rows on the {what}",
+                      kern[0] + (kern[1],), plain[0] + (plain[1],))
+    N, S = mask.shape
+    need, dense = compact_bytes(mask, arrays)
+    ms = cuda_ms(torch, lambda: KF.compact_rows(mask, arrays, fills))
+    plain_ms = cuda_ms(torch,
+                       lambda: KF.plain_compact_rows(mask, arrays, fills),
+                       reps=3)
+    bound = need / HBM_BYTES_PER_S * 1e3
+    dense_bound = dense / HBM_BYTES_PER_S * 1e3
+    chans = ["offsets" if a is KF.SLOT_OFFSETS else "source"
+             for a in arrays]
+    log(f"[compact_rows] {what} N={N} S={S} channels {chans} valid "
+        f"{int(kern[1].sum())}: max_abs_err {err}; form {form}, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+        f"({need} B), {bound / ms:.3f} of it; a dense read of the source "
+        f"channels {dense_bound:.5f} ms, {dense_bound / ms:.3f} of it")
+    return {"what": what, "N": N, "S": S, "channels": chans,
+            "valid": int(kern[1].sum()), "err": err, "form": form, "ms": ms,
+            "plain_ms": plain_ms, "bytes": need, "bound_ms": bound,
+            "dense_bound_ms": dense_bound}
 
 
 class Tap:
@@ -428,6 +517,28 @@ def parity_stage_cases(torch, dev, K, KB) -> None:
     torch.cuda.synchronize()
 
 
+def parity_compact_cases(torch, dev, KF) -> None:
+    """Phase 3 for B2: the COMPACT_CASES of scripts/torch_stage_cases.py,
+    bit for bit, both forms launched."""
+    SC = stage_cases()
+    forms = set()
+    for name in SC.COMPACT_CASES:
+        mask, arrays, fills = SC.compact_args(SC.compact_case(name), dev)
+        kout, kcnt = KF.compact_rows(mask, arrays, fills)
+        form = KF.compact_rows.last_form
+        pout, pcnt = KF.plain_compact_rows(mask, arrays, fills)
+        err = check_equal(torch, f"compact_rows {name}", kout + (kcnt,),
+                          pout + (pcnt,))
+        forms.add(form)
+        N, S = mask.shape
+        log(f"[3 parity] compact_rows stage case {name} N={N} S={S} "
+            f"channels {len(arrays)}: form {form}, max_abs_err {err}")
+    if forms != {"vector", "general"}:
+        raise AssertionError(f"phase 3 did not launch both forms of B2: "
+                             f"{forms}")
+    torch.cuda.synchronize()
+
+
 def parity_bits(torch, KF, what, mask, words, forms) -> str:
     """B3 and B4 against their plain versions on (mask, words), bit for bit;
     adds the forms that launched to `forms`; returns a log line's tail."""
@@ -530,6 +641,7 @@ def run_values(torch, args, graph, edges, weights, td_roots, scalar,
     from repro_torch.api import BFSConfig
     from repro_torch.core.validate import validate_cc, validate_sssp
     from repro_torch.kernels import expand as K
+    from repro_torch.kernels import fold as KF
 
     dev = edges.device
     grid = graph.grid
@@ -539,13 +651,32 @@ def run_values(torch, args, graph, edges, weights, td_roots, scalar,
     eng = sess._algo_engine(ConnectedComponentsProgram(), None, grid.n + 1)
     hook = eng.value_expand_fn
     assert eng.expand_path == "kernel" and hook is not None
-    # 9b: keep one chunk of CC's first level (full frontier, start > 0)
+    # 9b: keep one chunk of CC's first level (full frontier, start > 0) and
+    # the values row of its second level's exchange (ids and labels)
     tap = Tap(hook, lambda k, a: a[0] > 0)
+    rows = []
+
+    def second_values_row(k, a):
+        if len(a[1]) == 2:
+            rows.append(k)
+        return len(rows) == 2 and rows[-1] == k
+
+    row_tap = Tap(KF.compact_rows, second_values_row)
+
+    class TappedValues:
+        compact_rows = row_tap
+        pack_bits = KF.pack_bits
+        unpack_bits = KF.unpack_bits
+        delta_gaps = KF.delta_gaps
+        delta_positions = KF.delta_positions
+
     eng.value_expand_fn = tap
+    eng.fold_ops = eng.codec.ops = TappedValues
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     cc, cc_s = timed(torch, sess.connected_components)
     eng.value_expand_fn = hook
+    eng.fold_ops = eng.codec.ops = KF
     cc_launches = read_counts()
     labels = cc.labels[:n]
     t0 = time.perf_counter()
@@ -670,7 +801,12 @@ def run_values(torch, args, graph, edges, weights, td_roots, scalar,
         f"{k_hi - k_lo + 1}: max_abs_err {err}; kernel {v_ms:.4f} ms, plain "
         f"{v_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms "
         f"({v_bytes} B)")
-    del tap, vargs, kern
+    (mask, arrays, fills), _ = row_tap.saved
+    if len(arrays) != 2:
+        raise AssertionError("phase 9 kept no values row")
+    report["compact_rows"].append(time_compact(
+        torch, "real values row (9b, CC level 2)", mask, arrays, fills))
+    del tap, row_tap, vargs, kern, mask, arrays
     phases.end("9b parity")
     return vals
 
@@ -973,6 +1109,18 @@ def parity_random_stages(torch, dev, gen, F, S) -> None:
             f"+ {shift}, a zero-degree run), front_total 0 / n/3 / n, "
             f"tiles {tiles}, chunks from 0 and straddling the live total: "
             f"{calls} calls, max_abs_err {err}")
+    SC = stage_cases()
+    for name in SC.BINSEARCH_CASES:
+        c = SC.binsearch_case(name)
+        cc = S.clip_cumul(torch.from_numpy(c["cumul"]).to(dev),
+                          c["front_total"])
+        gids = torch.from_numpy(c["gids"]).to(dev)
+        err = check_equal(torch, f"binsearch_map {name}",
+                          (S.binsearch_map(cc, gids, tile=c["tile"]),),
+                          (S.map_workload(gids, cc),))
+        log(f"[12 stages] binsearch_map stage case {name} n_cumul "
+            f"{cc.shape[0]} E={gids.shape[0]} tile {c['tile']}: max_abs_err "
+            f"{err}")
     n_rows = (1 << 21) + 5                      # n_rows % 32 != 0
     nw = (n_rows + 31) // 32
     E = 1 << 20
@@ -998,7 +1146,6 @@ def parity_random_stages(torch, dev, gen, F, S) -> None:
         log(f"[12 stages] visited_filter random {words_kind} words, n_rows "
             f"{n_rows}, tiles {tiles}, valid 0.7 / all invalid, distinct / "
             f"duplicated vertices: {calls} calls, max_abs_err {err}")
-    SC = stage_cases()
     for name in SC.FILTER_CASES:
         err = 0
         for tile in SC.FILTER_TILES:
@@ -1119,21 +1266,23 @@ def run_stages(torch, args, graph, roots, scalar, chunk, b1, kernels,
     k_first, k_last = int(k[0]), int(k[-1])
     # gid in and k out per lane + each spanned cumul slot
     m_bytes = 8 * E + 4 * (k_last - k_first + 1)
-    m_ms = cuda_ms(torch, lambda: S.binsearch_map(cc, gids))
-    m_plain = cuda_ms(torch, lambda: S.map_workload(gids, cc),
-                      reps=3)
-    m_lib = cuda_ms(torch, lambda: torch.searchsorted(cc, gids, right=True,
-                                                      out_int32=True))
+    m_ms = cuda_ms_cold(torch, lambda: S.binsearch_map(cc, gids))
+    m_warm = cuda_ms(torch, lambda: S.binsearch_map(cc, gids))
+    m_plain = cuda_ms_cold(torch, lambda: S.map_workload(gids, cc), reps=3)
+    m_lib = cuda_ms_cold(torch, lambda: torch.searchsorted(
+        cc, gids, right=True, out_int32=True))
     kernels.append(kernel_row(
         "binsearch_map", "src/repro_torch/csrc/stages.cu",
         "src/repro/kernels/_binsearch_map.py:100",
         launches["binsearch_map"], err, m_ms, m_plain, m_bytes,
         library_ms=m_lib))
     log(f"[12 stages] binsearch_map real chunk E={E} cumul slots "
-        f"{k_last - k_first + 1}: max_abs_err {err}; kernel {m_ms:.4f} ms, "
-        f"plain {m_plain:.4f} ms, torch.searchsorted (without the -1) "
-        f"{m_lib:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms "
-        f"({m_bytes} B)")
+        f"{k_last - k_first + 1}: max_abs_err {err}; with the L2 flushed "
+        f"before each call: kernel {m_ms:.4f} ms, plain {m_plain:.4f} ms, "
+        f"torch.searchsorted (without the -1) {m_lib:.4f} ms, bound "
+        f"{kernels[-1]['bound_ms']:.5f} ms ({m_bytes} B), "
+        f"{kernels[-1]['bound_ms'] / m_ms:.3f} of it; back to back from "
+        f"L2: kernel {m_warm:.4f} ms")
     err = check_equal(torch, "visited_filter on the real chunk", (won,),
                       (S.filter_tile(v1, valid, words, 512),))
     n_words = int(torch.unique(v1[valid] >> 5).numel())
@@ -1151,7 +1300,8 @@ def run_stages(torch, args, graph, roots, scalar, chunk, b1, kernels,
         f"{int(valid.sum())}, distinct words {n_words}: max_abs_err {err}; "
         f"kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
         f"{kernels[-1]['bound_ms']:.4f} ms ({f_bytes} B)")
-    report["stages"].update(binsearch_ms=m_ms, binsearch_plain_ms=m_plain,
+    report["stages"].update(binsearch_ms=m_ms, binsearch_warm_ms=m_warm,
+                            binsearch_plain_ms=m_plain,
                             searchsorted_ms=m_lib, filter_ms=f_ms,
                             filter_plain_ms=f_plain)
     phases.end("12 stages")
@@ -1267,8 +1417,10 @@ def main() -> int:
         pout, pcnt = KF.plain_compact_rows(mask, (vals,), (-1,))
         err = check_equal(torch, "compact_rows", kout + (kcnt,),
                           pout + (pcnt,))
-        log(f"[3 parity] compact_rows random N={N} S={S}: max_abs_err {err}")
+        log(f"[3 parity] compact_rows random N={N} S={S}: form "
+            f"{KF.compact_rows.last_form}, max_abs_err {err}")
     del rnd, deg, col_off, row_idx, front, visited, cumul, words
+    parity_compact_cases(torch, dev, KF)
     parity_stage_cases(torch, dev, K, KB)
     parity_random_dir(torch, dev, gen, KF, KB)
     parity_random_values(torch, dev, gen, F, K, KB, KF)
@@ -1446,23 +1598,13 @@ def main() -> int:
         f"{kernels[-1]['bound_ms']:.4f} ms ({e_bytes} B)")
 
     (mask, arrays, fills), _ = compact_tap.saved
-    kern = KF.compact_rows(mask, arrays, fills)
-    plain = KF.plain_compact_rows(mask, arrays, fills)
-    err = check_equal(torch, "compact_rows on the real row",
-                      kern[0] + (kern[1],), plain[0] + (plain[1],))
-    N, S = mask.shape
-    c_bytes = N * S * (1 + 8 * len(arrays)) + 4 * N
-    c_ms = cuda_ms(torch, lambda: KF.compact_rows(mask, arrays, fills))
-    c_plain = cuda_ms(torch,
-                      lambda: KF.plain_compact_rows(mask, arrays, fills))
+    b2 = time_compact(torch, "real exchange row (3b)", mask, arrays, fills)
     kernels.append(kernel_row(
         "compact_rows", "src/repro_torch/csrc/compact.cu",
-        "src/repro/kernels/fold.py:112", launches["compact_rows"], err,
-        c_ms, c_plain, c_bytes))
-    log(f"[3b parity] compact_rows real exchange row N={N} S={S} valid "
-        f"{int(kern[1].sum())}: max_abs_err {err}; kernel {c_ms:.4f} ms, "
-        f"plain {c_plain:.4f} ms, bound {kernels[-1]['bound_ms']:.4f} ms")
-    del expand_tap, compact_tap, kern, plain, v, mask, arrays
+        "src/repro/kernels/fold.py:112", launches["compact_rows"],
+        b2["err"], b2["ms"], b2["plain_ms"], b2["bytes"]))
+    report["compact_rows"] = [b2]
+    del expand_tap, compact_tap, v, mask, arrays
     phases.end("3b parity")
 
     # -- 12. the kernel-stage surface on the real chunk and graph ------------
@@ -1515,9 +1657,13 @@ def main() -> int:
     bu_tap = Tap(bu_hook, lambda k, a: a[0] > 0)
     pack_tap = Tap(KF.pack_bits, lambda k, a: k == 3)
     unpack_tap = Tap(KF.unpack_bits, lambda k, a: k == 3)
+    # the bitmap decode's compaction (the slot-offset channel over the N = 8
+    # unpacked rows) of a fold past the first few
+    decode_tap = Tap(KF.compact_rows, lambda k, a: k >= 5 and a[0].shape[0]
+                     == 8 and a[1][0] is KF.SLOT_OFFSETS)
 
     class TappedBits:
-        compact_rows = KF.compact_rows
+        compact_rows = decode_tap
         pack_bits = pack_tap
         unpack_bits = unpack_tap
 
@@ -1531,7 +1677,7 @@ def main() -> int:
     deng.fold_ops = deng.codec.ops = KF
     log(f"[7 dir-run] warm-up search {warm_s:.2f} s (taps: {bu_tap.calls} "
         f"bottom-up chunks, {pack_tap.calls} packs, {unpack_tap.calls} "
-        f"unpacks)")
+        f"unpacks, {decode_tap.calls} compactions)")
 
     counted = (K.expand_chunk, KF.compact_rows, KF.pack_bits,
                KF.unpack_bits, KB.bottomup_chunk)
@@ -1691,8 +1837,13 @@ def main() -> int:
         f"{span['walked_slots']} slots ({4 * span['walked_slots']} B of cumul"
         f" beside the bound)")
     report["b7_spans"] = dict(span, rows=rows, live=live, lanes=E)
-    del pack_tap, unpack_tap, bu_tap, mask, uwords, bargs, kern, r_out, \
-        c_out, bcumul, btotal, bwords
+    (dmask, darrays, dfills), _ = decode_tap.saved
+    if darrays[0] is not KF.SLOT_OFFSETS:
+        raise AssertionError("phase 7 kept no bitmap decode's compaction")
+    report["compact_rows"].append(time_compact(
+        torch, "real bitmap decode (7b)", dmask, darrays, dfills))
+    del pack_tap, unpack_tap, bu_tap, decode_tap, mask, uwords, bargs, \
+        kern, r_out, c_out, bcumul, btotal, bwords, dmask
     phases.end("7b parity")
 
     # -- 8. direction-path parity: reference path, bottom-up pinned ----------

@@ -1,8 +1,8 @@
 """Inputs that stress the stages of the fused expand kernels (B1
 `expand_chunk`, B8 `expand_chunk_values`), of the fused bottom-up kernels
 (B7 `bottomup_chunk`, B9 `bottomup_chunk_values`), of B11
-`visited_filter` and the two forms of B3 `pack_bits` / B4 `unpack_bits`,
-made with numpy from one seed.
+`visited_filter`, the two forms of B3 `pack_bits` / B4 `unpack_bits`, B2
+`compact_rows` and B10 `binsearch_map`, made with numpy from one seed.
 
 Stage 1 maps a block of consecutive edge ids to frontier slots, or to row
 slots over the value-capped masked-degree cumsum in the bottom-up kernels
@@ -67,11 +67,48 @@ filter_tile`).  The cases aim at what each could get wrong:
     offset_view    the mask a contiguous view 8 bytes into its buffer (pack
                    takes the general form) and the words a view one word in
 
+  COMPACT_CASES (B2 `compact_rows`; an (N, S) mask, its channels and
+  fills; `csrc/compact.cu` cuts rows into tiles of COMPACT_TILE slots and
+  takes its vector form where S % 16 == 0)
+    exchange_row   one row of 4 prefix-masked blocks with counts 0, S_b,
+                   1234 and 4097, as `compact_blocks` builds it
+    all_false      no slot kept
+    all_true       every slot kept
+    edge_4095/4096/4097  N = 2, S = 3 tiles: counts ending one before,
+                   at and one after a tile boundary (row 0 a prefix, row 1
+                   spread over the row)
+    unaligned      S = 10007, S % 16 != 0 with N = 5: the general form
+    s_1            S = 1
+    short_rows     N = 600 rows of S = 37, shorter than a tile
+    sparse         density 0.001: long runs of empty tiles
+    dense          density 0.999
+    extremes       two channels of any int32, fills INT32_MIN and
+                   INT32_MAX
+    offsets_8      the slot-offset channel (`SLOT_OFFSETS`) at N = 8, the
+                   bitmap decode's rows, at the fold's density
+
+  BINSEARCH_CASES (B10 `binsearch_map`; a cumul, its front_total, gids and
+  the Pallas tile; `csrc/stages.cu` maps blocks of 2048 lanes and
+  searches a span of up to 512 slots in shared memory)
+    consecutive    consecutive gids, as a search's chunk
+    gaps           sorted gids with random gaps: a block spans ~7600
+                   slots, past the shared-memory budget (lanes search in
+                   global memory)
+    gaps_narrow    sorted gids with small gaps: a block spans a few
+                   hundred slots (lanes search in shared memory)
+    repeats        runs of repeated gids
+    descending_tiles  each tile sorted, the tiles in descending order
+    whole_cumul    one tile spanning the whole cumul
+    below_first    cumul[0] > 0: lanes below it (0 here, -1 in the oracle)
+    past_total     lanes at and past the live total (front_total < n)
+    zero_runs      runs of 3000 zero-degree slots
+
 The tests hold the port's plain versions to the JAX package's Pallas
-kernels on these inputs (CPU: B1, B7, B3 and B4 in
-tests/test_torch_kernels.py, B8 and B9 in tests/test_torch_values.py, B11
-in tests/test_torch_stages.py) and the kernels to the plain versions (on
-the card, tests/test_torch_gpu.py and chip_smoke.py phases 3 and 12).
+kernels on these inputs (CPU: B1, B7, B2, B3 and B4 in
+tests/test_torch_kernels.py, B8 and B9 in tests/test_torch_values.py, B10
+and B11 in tests/test_torch_stages.py) and the kernels to the plain
+versions (on the card, tests/test_torch_gpu.py and chip_smoke.py phases 3
+and 12).
 """
 from __future__ import annotations
 
@@ -92,6 +129,13 @@ BITS_CASES = ("aligned", "half_word_tail", "odd_s", "one_word_1",
               "one_word_31", "one_word_32", "all_false", "all_true",
               "fold_density", "offset_view")
 MASK_OFFSET = 8                   # bytes: offset_view's mask is not aligned
+COMPACT_CASES = ("exchange_row", "all_false", "all_true", "edge_4095",
+                 "edge_4096", "edge_4097", "unaligned", "s_1", "short_rows",
+                 "sparse", "dense", "extremes", "offsets_8")
+COMPACT_TILE = 4096               # kTile of csrc/compact.cu
+BINSEARCH_CASES = ("consecutive", "gaps", "gaps_narrow", "repeats",
+                   "descending_tiles", "whole_cumul", "below_first",
+                   "past_total", "zero_runs")
 
 
 def table_slots(tile: int) -> int:
@@ -363,3 +407,107 @@ def bits_args(case: dict, device):
     vwords = wbuf[1:].view(words.shape)
     vwords.copy_(words)
     return vmask, vwords
+
+
+def compact_case(name: str, seed: int = 0) -> dict:
+    """One COMPACT_CASES input: numpy mask ((N, S) bool), arrays (a list of
+    (N, S) int32 channels, None for the slot-offset channel) and fills."""
+    assert name in COMPACT_CASES, name
+    rng = np.random.default_rng([seed, COMPACT_CASES.index(name)])
+    N, S, p = 3, 10000, 0.5
+    fills = [-1]
+    if name == "exchange_row":
+        S_b = 5000
+        cnts = np.array([0, S_b, 1234, 4097])
+        mask = (np.arange(S_b)[None, :] < cnts[:, None]).reshape(1, -1)
+        N, S = mask.shape
+    elif name.startswith("edge_"):
+        N, S = 2, 3 * COMPACT_TILE
+        count = int(name.split("_")[1])
+        mask = np.zeros((N, S), bool)
+        mask[0, :count] = True
+        mask[1, np.sort(rng.choice(S, count, replace=False))] = True
+    else:
+        if name == "unaligned":
+            N, S = 5, 10007
+        elif name == "s_1":
+            N, S = 7, 1
+        elif name == "short_rows":
+            N, S, p = 600, 37, 0.4
+        elif name in ("sparse", "dense"):
+            N, S, p = 2, 32 * COMPACT_TILE, 0.001 if name == "sparse" \
+                else 0.999
+        elif name == "offsets_8":
+            N, S, p = 8, 2 * COMPACT_TILE + 48, 0.1725
+        p = {"all_false": 0.0, "all_true": 1.0}.get(name, p)
+        mask = rng.random((N, S)) < p
+    arrays = [rng.integers(-5, I32_MAX, size=(N, S)).astype(np.int32)]
+    if name == "extremes":
+        arrays = [rng.integers(I32_MIN, I32_MAX, size=(N, S),
+                               endpoint=True).astype(np.int32)
+                  for _ in range(2)]
+        fills = [I32_MIN, I32_MAX]
+    elif name == "offsets_8":
+        arrays = [None]
+    return dict(name=name, mask=mask, arrays=arrays, fills=fills)
+
+
+def compact_args(case: dict, device):
+    """(mask, arrays, fills) for `compact_rows` on `device`, the
+    slot-offset channel as `SLOT_OFFSETS`."""
+    import torch
+    from repro_torch.core.frontier import SLOT_OFFSETS
+    arrays = tuple(SLOT_OFFSETS if a is None
+                   else torch.from_numpy(a).to(device)
+                   for a in case["arrays"])
+    return (torch.from_numpy(case["mask"]).to(device), arrays,
+            tuple(case["fills"]))
+
+
+def compact_arrays_np(case: dict) -> list:
+    """The case's channels as numpy arrays, the slot-offset channel as
+    each slot's offset (what the JAX kernel is given)."""
+    N, S = case["mask"].shape
+    t = np.broadcast_to(np.arange(S, dtype=np.int32), (N, S))
+    return [t if a is None else a for a in case["arrays"]]
+
+
+def binsearch_case(name: str, seed: int = 0) -> dict:
+    """One BINSEARCH_CASES input: numpy cumul (non-decreasing int32, not
+    yet clipped), gids (int32); ints front_total and tile."""
+    assert name in BINSEARCH_CASES, name
+    rng = np.random.default_rng([seed, BINSEARCH_CASES.index(name)])
+    n_seg, E, tile, shift = 1000, 4096, 512, 0
+    if name == "gaps":
+        n_seg = 30000
+    elif name == "whole_cumul":
+        n_seg, E, tile = 5000, 2048, 2048
+    elif name == "zero_runs":
+        n_seg = 8000
+    deg = rng.integers(0, 9, size=n_seg)
+    if name == "zero_runs":
+        deg[1000:4000] = 0
+        deg[5000:8000] = 0
+    if name == "below_first":
+        shift = 500
+    cumul = (np.concatenate([[0], np.cumsum(deg)]) + shift).astype(np.int32)
+    ft = n_seg // 2 if name == "past_total" else n_seg
+    total = int(cumul[ft])
+    if name == "consecutive":
+        gids = 1000 + np.arange(E)
+    elif name in ("gaps", "gaps_narrow", "whole_cumul"):
+        step = {"gaps": 30, "gaps_narrow": 1}.get(name, 2 * total // E + 1)
+        gids = np.cumsum(rng.integers(0, step + 1, size=E))
+    elif name == "repeats":
+        gids = np.repeat(np.sort(rng.integers(0, total, size=E // 16)), 16)
+    elif name == "descending_tiles":
+        gids = np.sort(rng.integers(0, total, size=E))
+        gids = gids.reshape(-1, tile)[::-1].reshape(-1)
+    elif name == "below_first":
+        gids = np.arange(E) * 2
+    elif name == "past_total":
+        gids = total - E // 2 + np.arange(E)
+    else:
+        gids = np.sort(rng.integers(0, total + 50, size=E))
+    return dict(name=name, cumul=cumul, front_total=ft,
+                gids=gids.astype(np.int32), tile=tile)

@@ -63,18 +63,28 @@ def compact_blocks(vals, cnts, fill=-1, ops=None):
     return out, total
 
 
+class _SlotOffsets:
+    """The type of `SLOT_OFFSETS`."""
+
+    def __repr__(self):
+        return "SLOT_OFFSETS"
+
+
+# A `compact_rows` channel that is each slot's own offset t in its row: the
+# kernel writes t and reads nothing for it, so no (N, S) tensor of offsets
+# is built.
+SLOT_OFFSETS = _SlotOffsets()
+
+
 def compact_offsets(mask, ops=None):
     """(N, S) bool -> (N, S) int32 offsets t of each row's set entries,
     ascending and front-packed, padded -1, and the (N,) int32 counts.
 
-    ops: the fold-kernel bundle whose `compact_rows` front-packs the offsets;
-    None = a stable argsort of ~mask, whose order IS the offsets.  Both are
-    bit-identical."""
-    N, S = mask.shape
+    ops: the fold-kernel bundle whose `compact_rows` front-packs the offsets
+    (the `SLOT_OFFSETS` channel); None = a stable argsort of ~mask, whose
+    order IS the offsets.  Both are bit-identical."""
     if ops is not None:
-        t = torch.arange(S, dtype=torch.int32, device=mask.device)
-        (ts,), cnt = ops.compact_rows(mask, (t.expand(N, S).contiguous(),),
-                                      (-1,))
+        (ts,), cnt = ops.compact_rows(mask, (SLOT_OFFSETS,), (-1,))
         return ts, cnt
     order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
     ts = torch.where(torch.gather(mask, 1, order), order.to(torch.int32), -1)

@@ -1,22 +1,44 @@
 // The two stages of the fused expand as standalone ops (paper sec. 3.4,
-// Alg. 3 lines 2 and 5-8): the workload map and the visited filter.  Their
-// bodies are `stage::workload_map` and `stage::filter_tile` of
-// stages.cuh.  B1 runs the same `filter_tile` fused, so B11 measures B1's
-// stage 3; B1 and B8 map their consecutive gids with the block form
-// `stage::workload_map_block`, which this op cannot use.
+// Alg. 3 lines 2 and 5-8): the workload map and the visited filter.  They
+// share stages.cuh with the fused kernels: B1 runs the same `filter_tile`,
+// so B11 measures B1's stage 3; B10 maps its lanes with `warp_map2` and
+// `search_lanes`, as `workload_map_block` does for B1, B7, B8 and B9, but
+// without the walk, since its gids need not be consecutive.
 //
 // binsearch_map_kernel
 //   Replaces: the Pallas kernel src/repro/kernels/_binsearch_map.py:
 //   binsearch_map (`map_workload_tile`).  For lane t:
 //     k[t] = max{l in [0, n_cumul) : cumul[l] <= gids[t]}, 0 where none,
 //   over a non-decreasing `cumul` clipped by the caller (entries past the
-//   live frontier are INT32_MAX, `clip_cumul`).  On sorted gids this equals
-//   the Pallas kernel on every lane: a masked lane (gid >= cumul[ft]) gets
-//   k = ft, and a lane below cumul[0] gets 0 (the oracle's searchsorted
-//   gives -1 there).  One thread per lane, each with its own binary
-//   search: the op's gids need only be sorted, not consecutive, so the
-//   block-cooperative form of B1 and B8 does not apply.  B7 and B9 run
-//   this per-thread search too, with their value cap.
+//   live frontier are INT32_MAX, `clip_cumul`).  On gids sorted within each
+//   Pallas tile this equals the Pallas kernel on every lane: a masked lane
+//   (gid >= cumul[ft]) gets k = ft, and a lane below cumul[0] gets 0 (the
+//   oracle's searchsorted gives -1 there).
+//   A block takes kMapLanes = 2048 consecutive lanes (8 a thread, 256
+//   threads).  Since k does not decrease with the gid, every lane's k lies
+//   between the k of the block's smallest gid and the k of its largest: a
+//   block reduction finds both gids and warp 0 both slots (`warp_map2`,
+//   32-ary: 5 rounds of dependent loads for a 2^25-slot cumul).  The bounds
+//   hold for any gids, so a block may straddle the Pallas tiles, sorted or
+//   not.  Then, by the span k_last - k_first:
+//    - 0 (the common case on a search's chunk, where 2^22 consecutive gids
+//      span a few thousand slots): every lane takes k_first, with no
+//      further load;
+//    - below kMapSmemSlots: the block loads cumul[k_first .. k_last] once,
+//      coalesced, into shared memory, and each lane binary-searches it
+//      there;
+//    - wider: each lane binary-searches [k_first, k_last] in global
+//      memory, the 8 searches of a thread in flight together.
+//   A search per lane over the whole cumul takes log2(n_cumul) dependent
+//   loads a lane, 13 on a search's chunk.  A block's time is a chain of
+//   dependent loads (its gids, the warp's 3-5 rounds, the span), so a
+//   block must carry many lanes: 8 lanes a thread beat 4 by 12 % on a
+//   search's chunk (0.0203 against 0.0232 ms with the L2 flushed, bound
+//   0.0100; a search per lane 0.0495, torch.searchsorted 0.0695), but are
+//   32 % slower on sparse gids whose blocks span thousands of slots, past
+//   the shared budget; the budget itself moves either case by < 2 % from
+//   512 to 2048 slots (scripts/torch_compact_designs.py, an NVIDIA H100
+//   80GB HBM3 at 700 W).
 //   What bounds it on an H100: bytes -- 4 B gid in and 4 B k out per lane,
 //   plus the cumul slots the chunk's lanes span.
 //
@@ -38,13 +60,89 @@
 
 namespace {
 
-__global__ void binsearch_map_kernel(const int* __restrict__ cumul,
-                                     int n_cumul,
-                                     const int* __restrict__ gids,
-                                     long long e, int* __restrict__ k_out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= e) return;
-  k_out[t] = stage::workload_map(cumul, n_cumul, gids[t]);
+constexpr int kMapThreads = 256;
+constexpr int kMapPerThread = 8;                         // lanes a thread
+constexpr int kMapLanes = kMapPerThread * kMapThreads;   // lanes a block
+// Cumul slots a block's span may have for its lanes to search in shared
+// memory (2 KiB).
+constexpr int kMapSmemSlots = 512;
+
+__global__ void __launch_bounds__(kMapThreads)
+    binsearch_map_kernel(const int* __restrict__ cumul, int n_cumul,
+                         const int* __restrict__ gids, long long e,
+                         int* __restrict__ k_out) {
+  constexpr int kWarps = kMapThreads / 32;
+  __shared__ int s_cumul[kMapSmemSlots > 0 ? kMapSmemSlots : 1];
+  __shared__ int s_lo[kWarps], s_hi[kWarps], s_ends[3];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long b0 = (long long)blockIdx.x * kMapLanes;
+  const int n_live = (int)min((long long)kMapLanes, e - b0);
+  int g[kMapPerThread];
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < kMapPerThread; ++j) {
+    const int i = j * kMapThreads + t;
+    g[j] = i < n_live ? gids[b0 + i] : INT_MIN;
+    if (i < n_live) {
+      lo = min(lo, g[j]);
+      hi = max(hi, g[j]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    lo = lane < kWarps ? s_lo[lane] : INT_MAX;
+    hi = lane < kWarps ? s_hi[lane] : INT_MIN;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    int ka, kb;
+    stage::warp_map2(cumul, n_cumul, lo, hi, 32, 0xffffffffu, ka, kb);
+    if (lane == 0) {
+      s_ends[0] = ka;
+      s_ends[1] = kb;
+      s_ends[2] = lo;
+    }
+  }
+  __syncthreads();
+  const int k_first = s_ends[0], k_last = s_ends[1];
+  int k[kMapPerThread];
+  if (k_first == k_last) {
+#pragma unroll
+    for (int j = 0; j < kMapPerThread; ++j) k[j] = k_first;
+  } else {
+    const int len = k_last - k_first + 1;
+#pragma unroll
+    for (int j = 0; j < kMapPerThread; ++j) {
+      if (j * kMapThreads + t >= n_live) g[j] = s_ends[2];  // an in-span gid
+    }
+    if (len <= kMapSmemSlots) {
+      for (int i = t; i < len; i += kMapThreads) {
+        s_cumul[i] = cumul[k_first + i];
+      }
+      __syncthreads();
+      stage::search_lanes(s_cumul, len, g, k);
+    } else {
+      stage::search_lanes(cumul + k_first, len, g, k);
+    }
+#pragma unroll
+    for (int j = 0; j < kMapPerThread; ++j) k[j] += k_first;
+  }
+#pragma unroll
+  for (int j = 0; j < kMapPerThread; ++j) {
+    const int i = j * kMapThreads + t;
+    if (i < n_live) k_out[b0 + i] = k[j];
+  }
 }
 
 __global__ void visited_filter_kernel(const int* __restrict__ v,
@@ -76,9 +174,8 @@ __global__ void visited_filter_kernel(const int* __restrict__ v,
 extern "C" int binsearch_map_launch(const int* cumul, int n_cumul,
                                     const int* gids, long long e, int* k_out,
                                     void* stream) {
-  constexpr int kThreads = 256;
-  const unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
-  binsearch_map_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((e + kMapLanes - 1) / kMapLanes);
+  binsearch_map_kernel<<<blocks, kMapThreads, 0, (cudaStream_t)stream>>>(
       cumul, n_cumul, gids, e, k_out);
   return (int)cudaGetLastError();
 }

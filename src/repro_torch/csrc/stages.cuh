@@ -2,14 +2,16 @@
 // 5-8), one copy of each: expand.cu (B1, B8) and bottomup.cu (B7, B9) run
 // them fused, stages.cu (B10, B11) runs them as standalone ops.
 //
-// Stage 1 has two forms.  `workload_map` is one binary search per thread,
-// for lanes that carry any sorted gids (B10).  `workload_map_block` is the
-// block-cooperative form for a block of consecutive gids (B1, B8 over the
-// frontier's cumsum; B7, B9 over the value-capped cumsum of every local
-// row): two searches per block, then a walk over the slots the block
-// spans, or, where that span is many times the block's lanes, a search
-// per lane inside it.  Stage 3, `filter_tile`, claims into a hash table in
-// shared memory (B1, B11).  The block forms give each thread kLanes lanes.
+// Stage 1 is block-cooperative: a warp finds the cumul slots of a block's
+// smallest and largest gid (`warp_map2`), and the block's lanes map inside
+// that span.  `workload_map_block` takes a block of consecutive gids (B1,
+// B8 over the frontier's cumsum; B7, B9 over the value-capped cumsum of
+// every local row) and walks the slots it spans, or, where that span is
+// many times the block's lanes, has each lane search inside it
+// (`search_lanes`); B10's kernel (stages.cu) takes any gids and searches
+// by lane, in shared memory where the span is short.  Stage 3,
+// `filter_tile`, claims into a hash table in shared memory (B1, B11).  The
+// block forms give each thread kLanes lanes.
 //
 // The words are the uint32 visited bitmap as int32 bit patterns; the
 // kernels read them as unsigned, so the test shifts them as unsigned.
@@ -31,10 +33,8 @@ __device__ __forceinline__ int clip_by_value(int x, int cap) {
 // Stage 1, the workload map:
 //   max{l in [0, n) : clip_by_value(cumul[l], cap) <= gid}, 0 where none,
 // over a non-decreasing cumul; the default cap reads cumul as it is.  One
-// independent binary search per thread, log2(n) dependent loads: the form
-// for gids that are sorted but not consecutive (B10).  Neighbouring lanes
-// share most of their probes, so after the first probes they hit in
-// L1/L2.
+// binary search by one thread, log2(n) dependent loads: `warp_map2`'s
+// form for a warp of one lane.
 __device__ __forceinline__ int workload_map(const int* __restrict__ cumul,
                                             int n, int gid,
                                             int cap = INT_MAX) {
@@ -89,6 +89,27 @@ __device__ __forceinline__ void warp_map2(const int* __restrict__ cumul,
 // barriers serve kLanes lanes a thread, and each thread has kLanes
 // independent loads in flight.
 constexpr int kLanes = 4;
+
+// Each lane's max{l in [0, len) : base[l] <= gid[j]}, 0 where none, over a
+// non-decreasing base (global or shared memory): log2(len) dependent
+// probes a lane, the N searches of a thread taking the same steps (they
+// depend on len alone), so their probes are in flight together.
+template <int N>
+__device__ __forceinline__ void search_lanes(const int* __restrict__ base,
+                                             int len, const int (&gid)[N],
+                                             int (&k)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) k[j] = 0;
+  // the answer lies in [k[j], k[j] + len - 1]
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (base[k[j] + half] <= gid[j]) k[j] += half;
+    }
+    len -= half;
+  }
+}
 
 // Dynamic shared memory that `workload_map_block` needs for a block of
 // `threads` threads: one int a lane.
@@ -173,18 +194,10 @@ __device__ __forceinline__ void workload_map_block(
 #pragma unroll
     for (int j = 0; j < kLanes; ++j) {
       gid[j] = g0 + min(j * threads + t, n_live - 1);
-      k[j] = k_first;
     }
-    // the answer lies in [k[j], k[j] + len - 1]; the steps depend on len
-    // alone, so the kLanes searches keep their probes in flight together
-    for (int len = k_last - k_first + 1; len > 1;) {
-      const int half = len >> 1;
+    search_lanes(cumul + k_first, k_last - k_first + 1, gid, k);
 #pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        if (cumul[k[j] + half] <= gid[j]) k[j] += half;
-      }
-      len -= half;
-    }
+    for (int j = 0; j < kLanes; ++j) k[j] += k_first;
     return;
   }
   for (int l0 = k_first + 1 + t; l0 <= k_last; l0 += kLanes * threads) {

@@ -3,13 +3,16 @@
 bit packing.
 
 `compact_rows` front-packs each row's masked entries, in order, and pads
-with per-channel fills: the argsort replacement `core.frontier.
-compact_blocks` takes on the main path (`dist.exchange.expand_exchange`,
-every level).  For CUDA tensors it computes the count prefix with one flat
-torch.cumsum (`row_prefix`) and launches `csrc/compact.cu` once per
-channel; for CPU tensors it runs `plain_compact_rows`, a stable argsort of
-~mask.  Both are bit-identical: the output is fully determined by the
-mask.
+with per-channel fills: the argsort replacement of `core.frontier.
+compact_blocks` (`dist.exchange.expand_exchange`, every top-down level),
+`compact_offsets` (the bitmap decode, `pack_blocks`, `owned_to_front`) and
+`expand_exchange_values`.  A channel given as `SLOT_OFFSETS` is each
+slot's own offset t.  For CUDA tensors it launches `csrc/compact.cu` for
+every channel together: each tile of a row counts its kept slots, a scan
+turns the counts into offsets, and each tile writes its runs and its share
+of the fills, with no (N, S) prefix tensor; for CPU tensors it runs
+`plain_compact_rows`, a stable argsort of ~mask.  Both are bit-identical:
+the output is fully determined by the mask.
 
 `pack_bits` / `unpack_bits` turn (N, S) bool rows into (N, ceil(S/32))
 int32 words holding the JAX uint32 bit pattern and back: `BitmapFold`'s
@@ -39,50 +42,49 @@ from repro_torch.kernels import build
 from repro_torch.kernels.select import launches_kernel
 
 
+SLOT_OFFSETS = F.SLOT_OFFSETS
+
+
 def plain_compact_rows(mask, arrays, fills):
-    """Stable-argsort compaction in plain torch, on any device."""
+    """Stable-argsort compaction in plain torch, on any device (a
+    `SLOT_OFFSETS` channel is the argsort's order itself)."""
     order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
     keep = torch.gather(mask, 1, order)
     packed = tuple(
-        torch.where(keep, torch.gather(a, 1, order),
+        torch.where(keep, order.to(torch.int32) if a is SLOT_OFFSETS
+                    else torch.gather(a, 1, order),
                     torch.tensor(int(f), dtype=torch.int32,
                                  device=mask.device))
         for a, f in zip(arrays, fills))
     return packed, mask.sum(dim=1, dtype=torch.int32)
 
 
-def row_prefix(mask):
-    """(N, S) bool -> (N, S) int32 inclusive count prefix of each row.
-
-    One scan over the flattened mask, then each row's base subtracted:
-    torch's scan along the last dim of a 2D tensor works a row per thread
-    block, so a few rows of 2^24 slots leave most of the card idle, while
-    the flat scan spreads over all of it."""
-    N, S = mask.shape
-    inc = torch.cumsum(mask.reshape(-1), 0, dtype=torch.int32).view(N, S)
-    if N > 1:
-        base = inc[:-1, -1].clone()
-        inc[1:] -= base[:, None]
-    return inc
-
-
-def _launcher():
-    fn = build.library("compact").compact_rows_launch
+def _compact_lib():
+    lib = build.library("compact")
+    fn = lib.compact_rows_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptrs = ctypes.POINTER(ctypes.c_longlong)
+        fn.argtypes = [p, i32, i64, i32, ptrs, ptrs,
+                       ctypes.POINTER(ctypes.c_int), p, p, p,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i32
+        lib.compact_rows_scratch_bytes.argtypes = [i32, i64]
+        lib.compact_rows_scratch_bytes.restype = i64
+        lib.compact_rows_max_channels.argtypes = []
+        lib.compact_rows_max_channels.restype = i32
+    return lib
 
 
 def compact_rows(mask, arrays, fills):
     """Front-pack each row's valid entries, preserving order.
 
-    mask: (N, S) bool validity; arrays: aligned (N, S) int32 channels;
-    fills: per-channel pad values.  Returns (tuple of packed (N, S) int32
-    arrays, (N,) int32 counts).  CUDA tensors launch the kernel once per
-    channel (counted in `compact_rows.launches`); CPU tensors run the plain
+    mask: (N, S) bool validity; arrays: aligned (N, S) int32 channels, or
+    `SLOT_OFFSETS` for a channel holding each slot's offset t; fills:
+    per-channel pad values.  Returns (tuple of packed (N, S) int32 arrays,
+    (N,) int32 counts).  CUDA tensors launch the kernel once for up to four
+    channels (counted in `compact_rows.launches`, its form, "vector" or
+    "general", in `compact_rows.last_form`); CPU tensors run the plain
     version."""
     arrays = tuple(arrays)
     fills = tuple(int(f) for f in fills)
@@ -98,35 +100,46 @@ def compact_rows(mask, arrays, fills):
                          f"bool tensor, got {mask.dtype} "
                          f"{tuple(mask.shape)}")
     for a in arrays:
-        if a.shape != mask.shape or a.dtype != torch.int32 \
-                or a.device != dev or not a.is_contiguous():
+        if a is not SLOT_OFFSETS and (
+                a.shape != mask.shape or a.dtype != torch.int32
+                or a.device != dev or not a.is_contiguous()):
             raise ValueError(
                 f"compact_rows: channels must be contiguous int32 "
-                f"{tuple(mask.shape)} on {dev}, got {a.dtype} "
-                f"{tuple(a.shape)} on {a.device}")
+                f"{tuple(mask.shape)} on {dev} or SLOT_OFFSETS, got "
+                f"{a.dtype} {tuple(a.shape)} on {a.device}")
     N, S = mask.shape
-    if N > 65535:
-        raise ValueError(f"compact_rows: {N} rows exceed the grid's 65535")
-    if S == 0:
-        empty = tuple(torch.empty((N, 0), dtype=torch.int32, device=dev)
-                      for _ in arrays)
-        return empty, torch.zeros(N, dtype=torch.int32, device=dev)
-    inc = row_prefix(mask)
-    fn = _launcher()
-    packed = []
+    outs = tuple(torch.empty((N, S), dtype=torch.int32, device=dev)
+                 for _ in arrays)
+    counts = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0 or S == 0:
+        return outs, counts.zero_()
+    lib = _compact_lib()
+    per = lib.compact_rows_max_channels()
+    scratch = torch.empty(lib.compact_rows_scratch_bytes(N, S),
+                          dtype=torch.uint8, device=dev)
+    vector = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for a, f in zip(arrays, fills):
-            out = torch.empty((N, S), dtype=torch.int32, device=dev)
-            rc = fn(mask.data_ptr(), inc.data_ptr(), a.data_ptr(),
-                    out.data_ptr(), N, S, f, stream)
+        for c0 in range(0, max(len(arrays), 1), per):
+            group = range(c0, min(c0 + per, len(arrays)))
+            n = len(group)
+            src = (ctypes.c_longlong * n)(*[
+                0 if arrays[c] is SLOT_OFFSETS else arrays[c].data_ptr()
+                for c in group])
+            out = (ctypes.c_longlong * n)(*[outs[c].data_ptr()
+                                            for c in group])
+            fill = (ctypes.c_int * n)(*[fills[c] for c in group])
+            rc = lib.compact_rows_launch(
+                mask.data_ptr(), N, S, n, src, out, fill, counts.data_ptr(),
+                scratch.data_ptr(), stream, ctypes.byref(vector))
             build.check(rc, "compact_rows")
             compact_rows.launches += 1
-            packed.append(out)
-    return tuple(packed), inc[:, -1].contiguous()
+    compact_rows.last_form = "vector" if vector.value else "general"
+    return outs, counts
 
 
 compact_rows.launches = 0
+compact_rows.last_form = None
 
 
 def plain_pack_bits(mask):

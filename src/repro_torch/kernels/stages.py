@@ -17,13 +17,15 @@ in torch, on any device, and the plain versions of the two ops.
 CUDA kernel in `csrc/stages.cu` for CUDA tensors (counted in
 `fn.launches`) and runs its plain version for CPU tensors.  Both equal the
 Pallas kernels on every lane, masked lanes included.  `binsearch_map`'s
-kernel runs one binary search per thread, since its gids need only be
-sorted; `window`, the width of the TPU kernel's broadcast-compare, has no
-meaning there, so the port leaves it out.  The fused B1 and B8 map their
-consecutive gids block by block instead (`stage::workload_map_block` in
-`csrc/stages.cuh`).  `visited_filter`'s kernel is B1's stage 3: each lane
-claims its vertex in a hash table in shared memory, and the smallest lane
-of each vertex wins.
+kernel searches block by block: one warp finds the cumul slots of the
+block's smallest and largest gid, and the lanes search only between them
+(in shared memory where that span is short), so its gids need only be
+sorted within a Pallas tile; `window`, the width of the TPU kernel's
+broadcast-compare, has no meaning there, so the port leaves it out.  The
+fused B1, B7, B8 and B9 map their consecutive gids with the same warp
+search and a walk (`stage::workload_map_block` in `csrc/stages.cuh`).
+`visited_filter`'s kernel is B1's stage 3: each lane claims its vertex in
+a hash table in shared memory, and the smallest lane of each vertex wins.
 
 Words are the uint32 visited bitmap as int32 bit patterns
 (`core.frontier.pack_bitmap`); the plain test masks with `& 1` after the
@@ -100,17 +102,18 @@ def _launcher(name, argtypes):
 
 
 def binsearch_map(cumul, gids, *, tile: int = 512):
-    """k[t] = max{l : cumul[l] <= gids[t]} for ascending gids (consecutive
-    edge ids in the BFS) over a non-decreasing int32 cumul, clipped by the
-    caller (`clip_cumul`); 0 where no entry is <= gids[t].
+    """k[t] = max{l : cumul[l] <= gids[t]} for gids ascending within each
+    tile (consecutive edge ids in the BFS) over a non-decreasing int32
+    cumul, clipped by the caller (`clip_cumul`); 0 where no entry is <=
+    gids[t].
 
     tile: the Pallas grid's block; as there, the gids must be a multiple
-    of it (else ValueError).  The CUDA kernel runs one thread per lane,
-    each with its own binary search (the per-thread form that B7 and B9
-    run too; B1 and B8 no longer do).
-    CUDA tensors launch the kernel (counted in `binsearch_map.launches`);
-    CPU tensors run its plain version `map_workload`.  The inputs are
-    checked on every device."""
+    of it (else ValueError).  The CUDA kernel maps blocks of 2048 lanes:
+    the slots of a block's smallest and largest gid bound every lane's,
+    so a block may straddle tiles, and it equals `map_workload` on any
+    gids.  CUDA tensors launch the kernel (counted in
+    `binsearch_map.launches`); CPU tensors run its plain version
+    `map_workload`.  The inputs are checked on every device."""
     dev = gids.device
     _check_tensors("binsearch_map", dev, torch.int32, cumul=cumul, gids=gids)
     e = gids.shape[0]

@@ -187,6 +187,71 @@ def test_bits_cases_launch_both_forms(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", SC.COMPACT_CASES)
+def test_compact_cases_equal_plain_on_card(cuda_device, name):
+    """compact_rows equals its plain version on every slot and count of the
+    COMPACT_CASES of `scripts/torch_stage_cases.py` (the exchange row,
+    all-false / all-true, counts at a tile's edge, S % 16 != 0, S = 1,
+    many short rows, densities 0.001 / 0.999, extreme fills, the
+    slot-offset channel), one launch counted, in the form its rows pick:
+    vector where S % 16 == 0 (fresh tensors are aligned), else general."""
+    c = SC.compact_case(name)
+    mask, arrays, fills = SC.compact_args(c, cuda_device)
+    n0 = KF.compact_rows.launches
+    kout, kcnt = KF.compact_rows(mask, arrays, fills)
+    torch.cuda.synchronize()
+    assert KF.compact_rows.launches == n0 + 1
+    pout, pcnt = KF.plain_compact_rows(*SC.compact_args(c, "cpu"))
+    for k, p_ in zip(kout + (kcnt,), pout + (pcnt,)):
+        assert torch.equal(k.cpu(), p_)
+    assert KF.compact_rows.last_form == \
+        ("vector" if mask.shape[1] % 16 == 0 else "general")
+
+
+@pytest.mark.gpu
+def test_compact_rows_forms_and_many_rows(cuda_device, rng):
+    """Both forms run over COMPACT_CASES; more than 65535 rows (the old
+    grid's limit) and more channels than one launch takes (two launches)
+    equal the plain version."""
+    forms = set()
+    for name in SC.COMPACT_CASES:
+        KF.compact_rows(*SC.compact_args(SC.compact_case(name), cuda_device))
+        forms.add(KF.compact_rows.last_form)
+    assert forms == {"vector", "general"}
+    mask = torch.from_numpy(rng.random((70_000, 3)) < 0.5)
+    chans = tuple(torch.from_numpy(rng.integers(0, 99, size=(70_000, 3))
+                                   .astype(np.int32)) for _ in range(5))
+    fills = (-1, 2, 3, 4, 5)
+    plain = KF.plain_compact_rows(mask, chans, fills)
+    n0 = KF.compact_rows.launches
+    kern = KF.compact_rows(mask.to(cuda_device),
+                           tuple(c.to(cuda_device) for c in chans), fills)
+    torch.cuda.synchronize()
+    assert KF.compact_rows.launches == n0 + 2
+    for k, p_ in zip(kern[0] + (kern[1],), plain[0] + (plain[1],)):
+        assert torch.equal(k.cpu(), p_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SC.BINSEARCH_CASES)
+def test_binsearch_cases_equal_plain_on_card(cuda_device, name):
+    """binsearch_map equals its plain version on every lane of the
+    BINSEARCH_CASES of `scripts/torch_stage_cases.py` (consecutive gids,
+    wide and narrow gaps, repeats, tiles descending across tiles, one tile
+    spanning the whole cumul, lanes below cumul[0] and past the live total,
+    zero-degree runs), one launch counted."""
+    c = SC.binsearch_case(name)
+    cc = S.clip_cumul(torch.from_numpy(c["cumul"]), c["front_total"])
+    gids = torch.from_numpy(c["gids"])
+    n0 = S.binsearch_map.launches
+    kern = S.binsearch_map(cc.to(cuda_device), gids.to(cuda_device),
+                           tile=c["tile"])
+    torch.cuda.synchronize()
+    assert S.binsearch_map.launches == n0 + 1
+    assert torch.equal(kern.cpu(), S.map_workload(gids, cc))
+
+
+@pytest.mark.gpu
 def test_value_kernels_equal_plain_on_card(cuda_device, rng):
     """expand_chunk_values and bottomup_chunk_values equal their plain
     versions, and each launch counts: an empty frontier, total = 0, a chunk

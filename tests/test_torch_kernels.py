@@ -7,7 +7,9 @@
     `scripts/torch_stage_cases.py` that stress the CUDA kernel's stages
     (the kernel is held to this plain version on the card);
   * the plain `compact_rows` equals `repro.kernels.fold.compact_rows(...,
-    interpret=True)`;
+    interpret=True)`, also on the COMPACT_CASES of
+    `scripts/torch_stage_cases.py`, and `compact_offsets(ops=KF)` (its
+    slot-offset channel) equals the JAX bitmap decode's compaction;
   * the plain `bottomup_chunk` equals `repro.kernels.bottomup.
     bottomup_chunk(..., interpret=True)` on (r, c, hit), every lane (random
     inputs and the BOTTOMUP_CASES of `scripts/torch_stage_cases.py`), and
@@ -35,7 +37,9 @@ from repro.core import frontier as JF
 from repro.graphgen import rmat_edges as jax_rmat_edges
 from repro.kernels.bottomup import bottomup_chunk as jax_bottomup_chunk
 from repro.kernels.expand import expand_chunk as jax_expand_chunk
+from repro.dist.exchange import BitmapFold as JBitmapFold
 from repro.kernels.fold import compact_rows as jax_compact_rows
+from repro.kernels.fold import make_fold_ops as jax_make_fold_ops
 from repro.kernels.fold import pack_bits as jax_pack_bits
 from repro.kernels.fold import unpack_bits as jax_unpack_bits
 from repro_torch.api import BFSConfig, DistGraph
@@ -206,6 +210,46 @@ def test_plain_compact_rows_real_exchange_row():
     assert int(total) == int(cnts.sum())
 
 
+@pytest.mark.parametrize("name", SC.COMPACT_CASES)
+def test_plain_compact_rows_stage_cases_equal_pallas(name):
+    """The compaction stress cases (the exchange row, all-false / all-true
+    rows, counts ending at a kernel tile's edge, S % 16 != 0, S = 1, many
+    short rows, densities 0.001 and 0.999, fills at INT32_MIN / INT32_MAX,
+    the slot-offset channel): every slot and count against the Pallas
+    kernel."""
+    c = SC.compact_case(name)
+    mask, arrays, fills = SC.compact_args(c, "cpu")
+    jout, jcnt = jax_compact_rows(
+        jnp.asarray(c["mask"]),
+        tuple(jnp.asarray(a) for a in SC.compact_arrays_np(c)),
+        tuple(fills), interpret=True)
+    tout, tcnt = KF.compact_rows(mask, arrays, fills)
+    assert len(tout) == len(jout)
+    for t_, j_ in zip(tout, jout):
+        np.testing.assert_array_equal(t_.numpy(), np.asarray(j_))
+    np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_array_equal(tcnt.numpy(), c["mask"].sum(axis=1))
+
+
+@pytest.mark.parametrize("N,S,p", [(8, 8240, 0.1725), (3, 77, 0.0),
+                                   (4, 4099, 1.0)])
+def test_compact_offsets_with_kernels_equals_jax_decode(N, S, p, rng):
+    """`compact_offsets(mask, ops=KF)` (the `SLOT_OFFSETS` channel) equals
+    the JAX bitmap decode's compaction under its Pallas ops (interpret
+    mode): owned rows j*S + t, front-packed, padded -1, and the counts."""
+    mask = rng.random((N, S)) < p
+    j = 1
+    words = np.asarray(jax_pack_bits(jnp.asarray(mask), interpret=True))
+    jrows, jcnt = JBitmapFold.decode(jnp.asarray(words), j, S,
+                                     ops=jax_make_fold_ops())
+    ts, cnt = F.compact_offsets(torch.from_numpy(mask), KF)
+    rows = torch.where(ts >= 0, j * S + ts, -1)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    plain_ts, plain_cnt = F.compact_offsets(torch.from_numpy(mask))
+    assert torch.equal(ts, plain_ts) and torch.equal(cnt, plain_cnt)
+
+
 def _bottomup_inputs(rng, nrl, ncl, block, frontier_frac, e_max=None):
     """Random CSR, a blocked frontier bitmap and a MASKED-degree workload
     (some rows visited, their degree zeroed), as in tests/test_direction.py;
@@ -366,11 +410,3 @@ def test_kernel_path_on_cpu_raises(knob):
     assert resolve_path("auto", "cpu", knob=knob) == "reference"
     assert resolve_path("reference", "cpu", knob=knob) == "reference"
 
-
-@pytest.mark.parametrize("N,S,p", [(1, 70, 0.5), (4, 33, 0.0), (3, 64, 1.0),
-                                   (5, 1000, 0.3)])
-def test_row_prefix_is_the_row_cumsum(N, S, p, rng):
-    """The compaction's flat-scan row prefix equals a per-row cumsum."""
-    mask = torch.from_numpy(rng.random((N, S)) < p)
-    assert torch.equal(KF.row_prefix(mask),
-                       torch.cumsum(mask, dim=1, dtype=torch.int32))

@@ -1,8 +1,9 @@
 """The port's kernel-stage surface against the JAX package's.
 
   * B10: the plain `binsearch_map` equals `repro.kernels.binsearch_map(...,
-    interpret=True)` on every lane of `tests/test_kernels.py`'s sweep, and
-    the oracle on valid lanes; `clip_cumul` equals JAX's;
+    interpret=True)` on every lane of `tests/test_kernels.py`'s sweep and of
+    the BINSEARCH_CASES of `scripts/torch_stage_cases.py`, and the oracle
+    on valid lanes; `clip_cumul` equals JAX's;
   * B11: the plain `visited_filter` equals `repro.kernels.visited_filter`
     (interpret mode) on every lane, also on the hash-claim stress cases of
     `scripts/torch_stage_cases.py` at tiles 64 to 1024 (the kernel is held
@@ -122,6 +123,31 @@ def test_plain_binsearch_map_edge_cases(case, rng):
     if case == "below_first":
         assert (tk[gids < cumul[0]] == 0).all()
         assert (k_ref[gids < cumul[0]] == -1).all()
+
+
+@pytest.mark.parametrize("name", SC.BINSEARCH_CASES)
+def test_plain_binsearch_map_stage_cases_equal_pallas(name):
+    """The block-search stress cases (consecutive gids, random gaps wide
+    and narrow, repeated gids, tiles sorted but descending across tiles,
+    one tile spanning the whole cumul, lanes below cumul[0], lanes past the
+    live total, zero-degree runs): every lane against the Pallas kernel."""
+    c = SC.binsearch_case(name)
+    gids, tile, ft = c["gids"], c["tile"], c["front_total"]
+    jcc = jax_clip_cumul(jnp.asarray(c["cumul"]), jnp.int32(ft))
+    jk = np.asarray(jax_binsearch_map(jcc, jnp.asarray(gids), tile=tile,
+                                      interpret=True))
+    tcc = S.clip_cumul(torch.from_numpy(c["cumul"]),
+                       torch.tensor(ft, dtype=torch.int32))
+    tk = S.binsearch_map(tcc, torch.from_numpy(gids), tile=tile).numpy()
+    np.testing.assert_array_equal(tk, jk)
+    live = (gids >= c["cumul"][0]) & (gids < c["cumul"][ft])
+    k_ref = R.binsearch_map_ref(torch.from_numpy(c["cumul"]),
+                                torch.from_numpy(gids)).numpy()
+    np.testing.assert_array_equal(tk[live], k_ref[live])
+    assert (tk[gids >= c["cumul"][ft]] == ft).all()
+    assert (tk[gids < c["cumul"][0]] == 0).all()
+    if name == "descending_tiles":
+        assert (np.diff(gids.reshape(-1, tile)[:, 0]) < 0).any()
 
 
 # ----------------------------------------------------------------------------
