@@ -146,6 +146,22 @@ Phases, one line or more each on stdout:
                equal to list; B5 and B6 launched (> 0), then on one real
                call each: time, plain time, bound, and for B6 the time of
                torch.cumsum on the same gaps;
+  14. exch-obs after 10, on the resident SCALE 26 graph: the butterfly
+               exchange (`BFSConfig(exchange="butterfly")`, one stage at
+               C = 2) with `telemetry=True`: top-down BFS from phase 4's
+               first 4 roots equal to phase 4, direction-optimised (bitmap)
+               from 4 roots equal to phase 7, CC and one SSSP root equal
+               to phase 9; each `LevelTrace` against its output (scanned
+               total, frontier per level from the levels, n_levels, the
+               wire formula, log2(C) messages a processor a level,
+               `dir` = `directions`); B1 and B2, and B3, B4 and B7 on the
+               direction run, launched (> 0); one root's wall time under
+               flat / butterfly with telemetry off / on, in turns (no limit
+               asserted); the phase's seconds and peak memory;
+  14b. exch-8x8 after 11, on its 8x8 graph: exchange="auto" resolves to
+               the butterfly (3 stages); BFS both ways, CC and multi-BFS
+               under list and delta equal flat, their traces reading 3
+               messages a processor a level (multi-BFS 0, as in JAX);
   6. report    the {"kernels": [...]} line, the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
@@ -949,6 +965,218 @@ def run_values_direction(torch, args, graph, vals, kernels, report, phases):
     phases.end("10b parity")
 
 
+def check_trace(torch, what, out, n, wire=None, msgs=None, levels=None):
+    """A search's LevelTrace against its output: the scanned total, the
+    level count (the output's minus one, as in JAX), the per-processor
+    frontiers summing to the global one, the frontier per level from the
+    output's levels (`levels`, BFS), the wire bytes and messages a
+    processor a level (`wire`, `msgs`: ints; None = not a constant), and
+    the directions (`out.directions`, or all top-down).  Returns the
+    trace."""
+    tr = out.trace
+    n_out = int(out.n_levels if hasattr(out, "n_levels") else out.n_iters)
+    bad = []
+    if tr.total_scanned != out.edges_scanned:
+        bad.append(f"scanned {tr.total_scanned} != {out.edges_scanned}")
+    if tr.n_levels != n_out - 1:
+        bad.append(f"n_levels {tr.n_levels} != {n_out} - 1")
+    if not (tr.frontier_dev.sum(axis=0) == tr.frontier).all():
+        bad.append("frontier_dev does not sum to frontier")
+    if levels is not None:
+        lv = levels[:n]
+        hist = torch.bincount(lv[lv >= 0].long()).tolist()
+        if tr.frontier.tolist() != hist:
+            bad.append(f"frontier {tr.frontier.tolist()} != levels {hist}")
+    if wire is not None and not (tr.wire_dev == wire).all():
+        bad.append(f"wire {sorted(set(tr.wire_dev.ravel().tolist()))} != "
+                   f"{wire}")
+    if msgs is not None and not (tr.msgs_dev == msgs).all():
+        bad.append(f"msgs {sorted(set(tr.msgs_dev.ravel().tolist()))} != "
+                   f"{msgs}")
+    dirs = [0] * tr.n_levels if out.directions is None \
+        else out.directions.cpu().tolist()[:tr.n_levels]
+    if tr.direction.tolist() != dirs:
+        bad.append(f"dir {tr.direction.tolist()} != directions {dirs}")
+    if bad:
+        raise AssertionError(f"{what}: trace disagrees: {'; '.join(bad)}")
+    return tr
+
+
+def run_exchange_obs(torch, args, graph, td_roots, scalar, dscalar, vals,
+                     report, phases):
+    """Phase 14: the butterfly exchange and the per-level telemetry on the
+    resident SCALE 26 graph, held to phases 4, 7 and 9."""
+    from repro_torch.api import BFSConfig
+
+    grid = graph.grid
+    n, C, S = graph.n, grid.C, grid.S
+    log2c = C.bit_length() - 1
+    base = dict(grid=(grid.R, grid.C), edge_chunk=args.edge_chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    sess = graph.session(BFSConfig(**base, exchange="butterfly",
+                                   telemetry=True))
+    eng = sess.engine
+    if eng.exchange.name != "butterfly" or not eng.telemetry \
+            or eng.topo.exchange is not eng.exchange:
+        raise AssertionError("phase 14's session runs no traced butterfly")
+    # the list codec's set fold: C buckets of [count | S ids], of which the
+    # butterfly ships C/2 a stage over log2(C) stages
+    wire = (4 * S + 4) * (C // 2) * log2c
+    zero_counts()
+    n_td = min(4, len(scalar))
+    for k, r in enumerate(td_roots[:n_td]):
+        out, dt = timed(torch, lambda: sess.bfs(r))
+        lv, pr, nl, es = scalar[k]
+        if not (torch.equal(out.level.cpu(), lv)
+                and torch.equal(out.pred.cpu(), pr)
+                and int(out.n_levels) == nl and out.edges_scanned == es):
+            raise AssertionError(f"butterfly bfs root {r} differs from "
+                                 f"phase 4")
+        tr = check_trace(torch, f"butterfly bfs root {r}", out, n,
+                         wire=wire, msgs=log2c, levels=out.level)
+        if sess.last_trace() is not tr:
+            raise AssertionError("last_trace() is not the query's trace")
+        log(f"[14 exch-obs] butterfly + telemetry bfs root {r}: equal to "
+            f"phase 4, {dt:.3f} s; trace {tr.n_levels} levels, frontier "
+            f"{tr.frontier.tolist()}, scanned {tr.total_scanned}, wire "
+            f"{tr.total_wire_bytes} B, msgs {tr.total_msgs}")
+    td_launches = read_counts()
+    require_launched(td_launches, ("expand_chunk", "compact_rows"),
+                     "phase 14's top-down butterfly")
+
+    dsess = graph.session(BFSConfig(**base, direction=True,
+                                    fold_codec="bitmap", exchange="butterfly",
+                                    telemetry=True))
+    zero_counts()
+    n_dir = min(4, len(dscalar))
+    for k, r in enumerate(td_roots[:n_dir]):
+        out, dt = timed(torch, lambda: dsess.bfs(r))
+        lv, pr, nl, es, dr = dscalar[k]
+        if not (torch.equal(out.level.cpu(), lv)
+                and torch.equal(out.pred.cpu(), pr)
+                and int(out.n_levels) == nl and out.edges_scanned == es
+                and torch.equal(out.directions.cpu(), dr)):
+            raise AssertionError(f"butterfly direction bfs root {r} "
+                                 f"differs from phase 7")
+        tr = check_trace(torch, f"butterfly direction bfs root {r}", out, n,
+                         msgs=log2c, levels=out.level)
+        log(f"[14 exch-obs] butterfly + telemetry direction bfs root {r}: "
+            f"equal to phase 7, {dt:.3f} s; trace dir "
+            f"{''.join('TB'[d] for d in tr.direction.tolist())}, wire "
+            f"{tr.total_wire_bytes} B, msgs {tr.total_msgs}")
+    dir_launches = read_counts()
+    require_launched(dir_launches, ("pack_bits", "unpack_bits",
+                                    "bottomup_chunk"),
+                     "phase 14's direction-optimised butterfly")
+
+    cc, cc_s = timed(torch, sess.connected_components)
+    if not same(torch, (cc.labels, int(cc.n_iters), cc.edges_scanned),
+                vals["cc"]):
+        raise AssertionError("butterfly CC differs from phase 9")
+    tr = check_trace(torch, "butterfly CC", cc, n, msgs=log2c)
+    log(f"[14 exch-obs] butterfly + telemetry connected_components: equal "
+        f"to phase 9, {cc_s:.3f} s; trace {tr.n_levels} levels, folded "
+        f"{tr.folded.tolist()}, wire {tr.total_wire_bytes} B")
+    r = vals["sssp_roots"][0]
+    sp, sp_s = timed(torch, lambda: sess.sssp(r))
+    if not same(torch, (sp.dist, int(sp.n_iters), sp.edges_scanned),
+                vals["sssp"][0]):
+        raise AssertionError(f"butterfly sssp root {r} differs from phase 9")
+    tr = check_trace(torch, f"butterfly sssp root {r}", sp, n, msgs=log2c)
+    log(f"[14 exch-obs] butterfly + telemetry sssp root {r}: equal to "
+        f"phase 9, {sp_s:.3f} s; trace {tr.n_levels} levels, wire "
+        f"{tr.total_wire_bytes} B")
+    del cc, sp, out
+
+    # one root's wall time under each exchange, telemetry on and off, in
+    # turns (a, b, c, d, d, c, b, a); no limit is asserted
+    r = td_roots[0]
+    arms = {(ex, tel): graph.session(BFSConfig(**base, exchange=ex,
+                                               telemetry=tel))
+            for ex in ("flat", "butterfly") for tel in (False, True)}
+    walls = {key: [] for key in arms}
+    order = list(arms)
+    for key in order + order[::-1]:
+        _, dt = timed(torch, lambda: arms[key].bfs(r))
+        walls[key].append(dt)
+    for (ex, tel), ts in walls.items():
+        log(f"[14 exch-obs] wall time root {r} exchange={ex} "
+            f"telemetry={tel}: {sum(ts) / len(ts):.4f} s (runs "
+            f"{', '.join(f'{t:.4f}' for t in ts)})")
+    del arms
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[14 exch-obs] {phase_s:.1f} s, peak memory {peak / 2**30:.2f} "
+        f"GiB; launches top-down {td_launches}, direction {dir_launches}")
+    report["exch_obs"] = {
+        "wall_s": {f"{ex}/telemetry={tel}": ts
+                   for (ex, tel), ts in walls.items()},
+        "root": r, "td_launches": td_launches,
+        "dir_launches": dir_launches, "peak_bytes": peak,
+        "seconds": phase_s}
+    phases.end("14 exch-obs")
+
+
+def run_exchange_8x8(torch, graph, knobs, roots, report):
+    """Phase 14b, on phase 11's 8x8 graph: exchange="auto" resolves to the
+    butterfly (3 stages); BFS both ways, CC and multi-BFS under list and
+    delta equal flat, their traces reading 3 messages a processor a level
+    (multi-BFS 0, as in JAX)."""
+    from repro_torch.api import BFSConfig
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    C = graph.grid.C
+    rows = []
+    for codec in ("list", "delta"):
+        for direction in (False, True):
+            cfg = dict(knobs, fold_codec=codec, direction=direction)
+            auto = graph.session(BFSConfig(**cfg, exchange="auto",
+                                           telemetry=True))
+            flat = graph.session(BFSConfig(**cfg))
+            strat = auto.engine.exchange
+            if auto.config.exchange != "butterfly" or strat.name != \
+                    "butterfly" or strat.msgs_per_exchange(C) != 3:
+                raise AssertionError(f"exchange='auto' on 8x8 resolved to "
+                                     f"{auto.config.exchange}")
+            calls = [("bfs", lambda s: s.bfs(roots[0]), 3)]
+            if not direction:
+                calls += [("connected_components",
+                           lambda s: s.connected_components(fold_codec=codec),
+                           3),
+                          ("multi_bfs",
+                           lambda s: s.multi_bfs(roots, fold_codec=codec), 0)]
+            for what, call, msgs in calls:
+                a, a_s = timed(torch, lambda: call(auto))
+                b, b_s = timed(torch, lambda: call(flat))
+                fields = [f.name for f in dataclasses.fields(a)
+                          if f.name != "trace" and getattr(a, f.name)
+                          is not None]
+                if not same(torch, [getattr(a, f) for f in fields],
+                            [getattr(b, f) for f in fields]):
+                    raise AssertionError(f"{what} ({codec}, direction "
+                                         f"{direction}) under the butterfly "
+                                         f"differs from flat")
+                tr = check_trace(torch, f"8x8 {what} {codec}", a, graph.n,
+                                 msgs=msgs)
+                rows.append({"what": what, "codec": codec,
+                             "direction": direction, "butterfly_s": a_s,
+                             "flat_s": b_s, "msgs": tr.total_msgs,
+                             "wire": tr.total_wire_bytes})
+                log(f"[14b exch-8x8] {what} {codec} direction={direction}: "
+                    f"auto -> butterfly equal to flat ({', '.join(fields)});"
+                    f" trace {tr.n_levels} levels, {msgs} msgs a processor a"
+                    f" level, wire {tr.total_wire_bytes} B; butterfly "
+                    f"{a_s:.3f} s, flat {b_s:.3f} s")
+    peak = torch.cuda.max_memory_allocated()
+    secs = time.perf_counter() - t0
+    log(f"[14b exch-8x8] {secs:.1f} s, peak memory {peak / 2**30:.2f} GiB")
+    report["exch_8x8"] = {"rows": rows, "seconds": secs, "peak_bytes": peak}
+
+
 def run_delta(torch, dev, args, kernels, report, phases):
     """Phase 11: the delta codec at its limit, S = 65536 on an 8x8 grid:
     BFS both directions, CC, SSSP and multi-BFS equal to the list codec;
@@ -1076,9 +1304,12 @@ def run_delta(torch, dev, args, kernels, report, phases):
         f"{err}; kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, "
         f"torch.cumsum of the widened gaps {p_lib:.4f} ms, bound "
         f"{kernels[-1]['bound_ms']:.4f} ms")
-    del graph, edges, weights, index, gaps_tap, pos_tap
-    torch.cuda.empty_cache()
+    del gaps_tap, pos_tap
     phases.end("11 delta")
+    run_exchange_8x8(torch, graph, knobs, roots, report)
+    phases.end("14b exch-8x8")
+    del graph, edges, weights, index
+    torch.cuda.empty_cache()
 
 
 def parity_random_stages(torch, dev, gen, F, S) -> None:
@@ -1899,6 +2130,8 @@ def main() -> int:
                       reached, mb_ref, kernels, report, phases)
     del mb_ref
     run_values_direction(torch, args, graph, vals, kernels, report, phases)
+    run_exchange_obs(torch, args, graph, td_roots, scalar, dscalar, vals,
+                     report, phases)
     del graph, edges, weights, index, sess, dsess, eng, deng, vals
     torch.cuda.empty_cache()
     run_delta(torch, dev, args, kernels, report, phases)

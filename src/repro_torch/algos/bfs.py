@@ -74,11 +74,16 @@ def plan_level(engine, graph, st: BFSState) -> LevelPlan:
 
 
 def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
-                 block_edges) -> BFSState:
+                 block_edges):
     """One top-down level (paper Alg. 2 lines 12-18).
 
     block_edges: every processor's edge total of `plan`, as ints (the host
-    read the engine made).  level / pred / visited update in place."""
+    read the engine made).  level / pred / visited update in place.
+    Returns (state', aux): aux is the telemetry channel (None with
+    telemetry off) -- a SET fold, so the wire stamp is the exchange
+    strategy's scaling of the codec's static `wire_bytes(grid)`, `msgs`
+    the strategy's per-exchange message count and `folded` the entries
+    routed to remote owners (the own column never travels)."""
     topo, grid = engine.topo, engine.grid
     R, C, S = grid.R, grid.C, grid.S
     dev = st.front.device
@@ -104,6 +109,13 @@ def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
 
     # fold exchange: route discoveries to their owners (same grid row)
     int_verts, int_cnt = engine.codec.fold(dst, dst_cnt, topo=topo)
+    aux = None
+    if engine.telemetry:
+        strat = engine.exchange
+        aux = {"scanned": plan.counts[1:],
+               "folded": dst_cnt.sum(dim=2, dtype=torch.int32),
+               "wire": strat.wire_bytes(engine.codec.wire_bytes(grid), C),
+               "msgs": strat.msgs_per_exchange(C), "dir": 0}
 
     # frontier update (paper sec. 3.5)
     front = torch.empty_like(st.front)
@@ -122,7 +134,7 @@ def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
                                  arange_s < up.new_cnt)
         front[i, j], front_cnt[i, j] = canonical_front(nf, nc)
     return BFSState(level=st.level, pred=st.pred, visited=st.visited,
-                    front=front, front_cnt=front_cnt, lvl=st.lvl + 1)
+                    front=front, front_cnt=front_cnt, lvl=st.lvl + 1), aux
 
 
 class BFSLevelsProgram(FrontierProgram):
@@ -138,16 +150,13 @@ class BFSLevelsProgram(FrontierProgram):
 
     def make_step(self, engine, graph, extra=()):
         def step(st, plan, counts):
-            return (topdown_step(engine, graph, st, plan, counts[1:]),
-                    sum(counts[1:]))
+            st2, aux = topdown_step(engine, graph, st, plan, counts[1:])
+            return st2, sum(counts[1:]), aux
         return step
 
     def make_bottomup_step(self, engine, graph, extra):
         from repro_torch.algos.direction import make_bfs_bottomup_step
         return make_bfs_bottomup_step(engine, graph, extra)
-
-    def front_count(self, st):
-        return st.front_cnt
 
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.lvl <= engine.max_levels

@@ -27,6 +27,8 @@ class CCOutput:
     edges_scanned: Any = None  # exact Python int
     directions: Any = None     # per-level direction trace under direction
                                #   optimisation (see BFSOutput), else None
+    trace: Any = None          # LevelTrace when telemetry ran (a tuple of
+                               #   B for a batch), else None
 
 
 class ConnectedComponentsProgram(FrontierProgram):
@@ -64,9 +66,6 @@ class ConnectedComponentsProgram(FrontierProgram):
                                     relax=PR.identity_relax)
         return plan, PR.make_value_step(engine, graph, relax=PR.identity_relax,
                                         scan=scan)
-
-    def front_count(self, st):
-        return st.front_cnt
 
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.it <= engine.max_levels

@@ -204,13 +204,15 @@ def plan_bottomup(engine, row_off, st: BFSState) -> BottomUpPlan:
 
 
 def bottomup_step(engine, row_off, col_idx, st: BFSState,
-                  plan: BottomUpPlan, block_edges) -> BFSState:
+                  plan: BottomUpPlan, block_edges):
     """One bottom-up BFS level, equal to `bfs.topdown_step` in its result.
 
     Every unvisited local row scans its CSR in-edges for a frontier parent;
     the per-row minimum frontier col is this processor's proposal,
     value-folded to the owner; the owner merges with own-column priority,
-    then the minimum sender.  level / pred / visited update in place."""
+    then the minimum sender.  level / pred / visited update in place.
+    Returns (state', aux): the telemetry aux of a value fold, direction 1
+    (None with telemetry off)."""
     topo, grid = engine.topo, engine.grid
     R, C, S = grid.R, grid.C, grid.S
     nrl, ncl = grid.n_rows_local, grid.n_cols_local
@@ -248,6 +250,8 @@ def bottomup_step(engine, row_off, col_idx, st: BFSState,
     ids, cnt, vals = PR.pack_blocks(found, parent_g, grid,
                                     ops=engine.fold_ops)
     ri, _, rv = engine.codec.fold_values(ids, cnt, vals, topo=topo)
+    aux = PR.value_fold_aux(engine, plan, cnt, 1) if engine.telemetry \
+        else None
 
     # dense (R, C, C, S) per-sender parent table of each owned block;
     # senders propose each row at most once, and a pad adds I32_MAX at its
@@ -283,7 +287,7 @@ def bottomup_step(engine, row_off, col_idx, st: BFSState,
     ts = ts.view(R, C, S)
     front = torch.where(ts >= 0, i_s + ts, -1)
     return BFSState(level=st.level, pred=st.pred, visited=st.visited,
-                    front=front, front_cnt=nc.view(R, C), lvl=st.lvl + 1)
+                    front=front, front_cnt=nc.view(R, C), lvl=st.lvl + 1), aux
 
 
 def make_bfs_bottomup_step(engine, graph, extra):
@@ -295,8 +299,9 @@ def make_bfs_bottomup_step(engine, graph, extra):
         return plan_bottomup(engine, row_off, st)
 
     def step(st, plan, counts):
-        return (bottomup_step(engine, row_off, col_idx, st, plan, counts[1:]),
-                sum(counts[1:]))
+        st2, aux = bottomup_step(engine, row_off, col_idx, st, plan,
+                                 counts[1:])
+        return st2, sum(counts[1:]), aux
 
     return plan, step
 
@@ -364,12 +369,18 @@ class DirectionProgram(FrontierProgram):
             sub = bu_plan(st.inner) if use_bu \
                 else self.inner.plan(engine, graph, st.inner)
             sub_counts = sub.counts.tolist()      # the level's second read
-            inner2, scanned = (bu_step if use_bu else td_step)(
+            # both directions return (state, scanned, aux) with the same
+            # aux keys, so telemetry records the sub-plan's scan and the
+            # direction the level ran
+            inner2, scanned, aux = (bu_step if use_bu else td_step)(
                 st.inner, sub, sub_counts)
-            return DirState(inner=inner2,
-                            dirs=st.dirs + [int(use_bu)]), scanned
+            return (DirState(inner=inner2, dirs=st.dirs + [int(use_bu)]),
+                    scanned, aux)
 
         return step
+
+    def front_count(self, st):
+        return self.inner.front_count(st.inner)
 
     def keep_going(self, engine, st, total: int) -> bool:
         return self.inner.keep_going(engine, st.inner, total)

@@ -13,8 +13,17 @@ totals in Python ints (the JAX engine's `wide_add` (hi, lo) uint32 pair is
 not needed).
 
 A batch of searches runs root by root, as `lax.map` does.
+
+With telemetry on, the loop records one level of `obs.trace` after each
+step, where the JAX loop body does: the frontier total the level read, the
+processors' frontier counts before the step, the step's per-processor
+edges and its `aux` (folded entries, wire bytes, messages, direction).
+The record stays on the device and is read once, when the search is
+assembled, so the host reads per level do not change.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.dist.exchange import get_fold_codec
 from repro_torch.dist.strategy import get_exchange
@@ -22,6 +31,7 @@ from repro_torch.kernels import bottomup as bottomup_kernels
 from repro_torch.kernels import expand as expand_kernels
 from repro_torch.kernels import fold as fold_kernels
 from repro_torch.kernels.select import resolve_path
+from repro_torch.obs import trace as T
 
 
 class FrontierEngine:
@@ -50,16 +60,29 @@ class FrontierEngine:
                 by programs that declare `uses_bottomup` (the
                 direction-optimising wrapper), through `kernels.bottomup.
                 make_bottomup_fn` / `make_value_bottomup_fn`.
-    exchange:   fold exchange strategy ("flat").
+    exchange:   fold exchange strategy: "flat" | "butterfly" | "auto" |
+                an ExchangeStrategy instance (`dist/strategy.py`).  The
+                resolved strategy is bound into the engine's topology, so
+                every codec and the predecessor resolution route through
+                it; outputs are identical across strategies.
+    telemetry:  when True, record the per-level `obs.trace` beside every
+                search and return a `LevelTrace` with it (`output.trace`).
+                Off, no step computes its aux.
+                Outputs are identical either way.
     """
 
     def __init__(self, topo, program, *, fold_codec=None,
                  edge_chunk: int = 8192, max_levels: int = 64,
                  expand: str = "auto", expand_fn=None, fold: str = "auto",
                  dedup: str = "scatter", bottomup: str = "auto",
-                 exchange: str = "flat"):
+                 exchange="flat", telemetry: bool = False):
         if edge_chunk < 1:
             raise ValueError(f"edge_chunk must be >= 1, got {edge_chunk}")
+        # resolve + validate the strategy and bind it into the topology:
+        # the codecs and resolve_preds call topo.col_all_to_all
+        self.exchange = get_exchange(exchange, topo.grid)
+        if topo.exchange is not self.exchange:
+            topo = topo.with_exchange(self.exchange)
         self.topo = topo
         self.grid = topo.grid
         self.device = topo.device
@@ -67,7 +90,7 @@ class FrontierEngine:
         self.edge_chunk = int(edge_chunk)
         self.max_levels = int(max_levels)
         self.dedup = dedup
-        self.exchange = get_exchange(exchange, topo.grid)
+        self.telemetry = bool(telemetry)
         self.fold_path = resolve_path(fold, self.device, knob="fold")
         self.bottomup_path = resolve_path(bottomup, self.device,
                                           knob="bottomup")
@@ -100,24 +123,44 @@ class FrontierEngine:
         st = prog.init(self, graph, arg)
         step = prog.make_step(self, graph, extra)
         scanned = 0
+        tr = T.init_trace(self.max_levels, self.grid, self.device) \
+            if self.telemetry else None
         plan = prog.plan(self, graph, st)
         while True:
             counts = plan.counts.tolist()      # the level's host read
             if not prog.keep_going(self, st, counts[0]):
                 break
-            st, level_scanned = step(st, plan, counts)
+            front_dev = None if tr is None else prog.front_count(st)
+            st, level_scanned, aux = step(st, plan, counts)
             scanned += level_scanned
+            if tr is not None:
+                T.record_level(tr, frontier=counts[0], front_dev=front_dev,
+                               scanned=aux["scanned"],
+                               aux=T.normalize_aux(aux))
             plan = prog.plan(self, graph, st)
-        return tuple(prog.finalize(self, st)) + (scanned,)
+        outs = tuple(prog.finalize(self, st)) + (scanned,)
+        return outs if tr is None else outs + T.trace_outputs(tr)
+
+    def assemble(self, outs, B):
+        """Per-search outputs -> the program's output object, with the
+        telemetry split off, assembled into host `LevelTrace`s (one read of
+        the device record), attached as the output's `trace`."""
+        if not self.telemetry:
+            return self.program.assemble(self, outs, B)
+        n = T.N_TRACE_OUTS
+        trace = T.assemble_traces([o[-n:] for o in outs], B, grid=self.grid,
+                                  program=self.program.name,
+                                  codec=self.codec.name)
+        out = self.program.assemble(self, [o[:-n] for o in outs], B)
+        return dataclasses.replace(out, trace=trace)
 
     def run(self, graph, arg, extra=()):
         """One search from `arg` (a root); extra = the program's further
         per-processor graph arrays (the CSR twin for direction
         optimisation)."""
-        return self.program.assemble(
-            self, [self._search(graph, arg, extra)], None)
+        return self.assemble([self._search(graph, arg, extra)], None)
 
     def run_batch(self, graph, args, extra=()):
         """A batch of searches, one after another (`lax.map`'s order)."""
         outs = [self._search(graph, int(a), extra) for a in args]
-        return self.program.assemble(self, outs, len(outs))
+        return self.assemble(outs, len(outs))

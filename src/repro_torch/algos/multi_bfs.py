@@ -45,6 +45,8 @@ class MultiBFSOutput:
     edges_scanned: Any = None  # exact Python int
     directions: Any = None     # per-level direction trace under direction
                                #   optimisation (see BFSOutput), else None
+    trace: Any = None          # LevelTrace when telemetry ran (a tuple of
+                               #   B for a batch), else None
 
 
 class MultiSourceBFSProgram(FrontierProgram):
@@ -81,7 +83,8 @@ class MultiSourceBFSProgram(FrontierProgram):
 
     def make_step(self, engine, graph, extra=()):
         return self._make_step(engine, PR.push_scan(engine, graph,
-                                                    relax=PR.identity_relax))
+                                                    relax=PR.identity_relax),
+                               step_dir=0)
 
     def make_bottomup_step(self, engine, graph, extra):
         # the pull twin also masks visited rows out of the workload: their
@@ -90,9 +93,9 @@ class MultiSourceBFSProgram(FrontierProgram):
         plan, scan = make_pull_scan(engine, extra[-2], extra[-1],
                                     relax=PR.identity_relax,
                                     skip_fn=lambda st: st.visited)
-        return plan, self._make_step(engine, scan)
+        return plan, self._make_step(engine, scan, step_dir=1)
 
-    def _make_step(self, engine, scan):
+    def _make_step(self, engine, scan, step_dir: int):
         grid, topo = engine.grid, engine.topo
 
         def step(st: MultiBFSState, plan, counts):
@@ -106,6 +109,16 @@ class MultiSourceBFSProgram(FrontierProgram):
                                             ops=engine.fold_ops)
             del cand, improved
             ri, _, rv = engine.codec.fold_values(ids, cnt, vals, topo=topo)
+            aux = None
+            if engine.telemetry:
+                # JAX's accounting as it is: the codec's static frame plus
+                # 4 bytes per folded entry, not scaled by the exchange
+                # strategy, and no `msgs` key (the trace records 0)
+                folded = cnt.sum(dim=-1, dtype=torch.int32)
+                aux = {"scanned": plan.counts[1:], "folded": folded,
+                       "wire": engine.codec.wire_bytes(grid)
+                       + 4 * folded.to(torch.int64),
+                       "dir": step_dir}
             inc = PR.scatter_min_received(ri, rv, X.receiver_cols(topo),
                                           grid.S)
             # claims merge against the PRE-scan owned state: this
@@ -125,12 +138,9 @@ class MultiSourceBFSProgram(FrontierProgram):
             return (MultiBFSState(visited=st.visited, level=st.level,
                                   src=st.src, front=front, payload=payload,
                                   front_cnt=nc, lvl=st.lvl + 1),
-                    sum(counts[1:]))
+                    sum(counts[1:]), aux)
 
         return step
-
-    def front_count(self, st):
-        return st.front_cnt
 
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.lvl <= engine.max_levels

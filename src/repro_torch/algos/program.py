@@ -67,8 +67,14 @@ class FrontierProgram:
 
     def make_step(self, engine, graph, extra=()):
         """Return step(state, plan, counts) -> (state', edges scanned this
-        level), counts being the plan's counts as read (ints).  extra: the
-        program's first `n_extra` arrays."""
+        level, aux), counts being the plan's counts as read (ints).  extra:
+        the program's first `n_extra` arrays.
+
+        aux is the per-level telemetry channel (`obs.trace`): None when
+        `engine.telemetry` is off (no step computes it then), else a dict
+        with `scanned` (the plan's per-processor edge counts, a device
+        tensor) and any of `folded`, `wire`, `msgs`, `dir` (ints or (R, C)
+        tensors; a missing key records 0)."""
         raise NotImplementedError
 
     def make_bottomup_step(self, engine, graph, extra):
@@ -83,8 +89,10 @@ class FrontierProgram:
             f"direction optimisation")
 
     def front_count(self, st):
-        """Every processor's own frontier size, (R, C) int32."""
-        raise NotImplementedError
+        """Every processor's own frontier size, (R, C) int32 (the trace's
+        `front_dev` channel).  Every state in the port carries
+        `front_cnt`; wrappers delegate to their inner program."""
+        return st.front_cnt
 
     def keep_going(self, engine, st, total: int) -> bool:
         """Convergence predicate (True = run another level)."""
@@ -302,6 +310,22 @@ def owned_to_front(changed, vals, grid: Grid2D, fill_val=I32_MAX, ops=None):
     return front, payload.view(R, C, S), cnt.view(R, C)
 
 
+def value_fold_aux(engine, plan, cnt, direction: int) -> dict:
+    """The telemetry aux of a level whose fold is a value fold (the value
+    programs' step, the BFS bottom-up step): cnt (R, C, C) entries per
+    destination bucket.  Its wire bytes are the strategy-scaled static
+    frame plus the count-proportional value channel (on the flat route,
+    the codec's `wire_bytes_values_sent`)."""
+    grid, strat = engine.grid, engine.exchange
+    cols = torch.arange(grid.C, dtype=torch.int64,
+                        device=cnt.device).view(1, grid.C)
+    return {"scanned": plan.counts[1:],
+            "folded": cnt.sum(dim=-1, dtype=torch.int32),
+            "wire": strat.wire_bytes(engine.codec.wire_bytes(grid), grid.C)
+            + strat.value_extra_bytes(cnt, cols, grid.C),
+            "msgs": strat.msgs_per_exchange(grid.C), "dir": direction}
+
+
 def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
     """The min-monoid level step shared by CC and SSSP, the port of JAX's
     `make_value_step`.
@@ -314,10 +338,12 @@ def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
     (R, C, n_rows_local)`, the bottom-up pull scan
     (`algos.direction.make_pull_scan`); None = the top-down `scan_relax`
     over a `plan_values` plan.  Returns step(state, plan, counts) ->
-    (state', edges scanned)."""
+    (state', edges scanned, aux); aux records direction 1 under the pull
+    scan."""
     from repro_torch.dist.exchange import receiver_cols
 
     grid, topo = engine.grid, engine.topo
+    step_dir = 0 if scan is None else 1
     if scan is None:
         scan = push_scan(engine, graph, relax=relax, edge_vals=edge_vals)
 
@@ -330,6 +356,8 @@ def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
                                      ops=engine.fold_ops)
         del cand, improved
         ri, _, rv = engine.codec.fold_values(ids, cnt, vals, topo=topo)
+        aux = value_fold_aux(engine, plan, cnt, step_dir) \
+            if engine.telemetry else None
         inc = scatter_min_received(ri, rv, receiver_cols(topo), grid.S)
         # merge against the PRE-scan owned block: this processor's own
         # proposals travel through the self bucket of the exchange
@@ -339,7 +367,7 @@ def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
         front, payload, nc = owned_to_front(changed, new_owned, grid,
                                             ops=engine.fold_ops)
         return (ValueState(val=st.val, front=front, payload=payload,
-                           front_cnt=nc, it=st.it + 1), sum(counts[1:]))
+                           front_cnt=nc, it=st.it + 1), sum(counts[1:]), aux)
 
     return step
 

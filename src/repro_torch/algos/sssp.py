@@ -28,6 +28,8 @@ class SSSPOutput:
     edges_scanned: Any = None  # exact Python int, or a tuple of B ints
     directions: Any = None     # per-level direction trace under direction
                                #   optimisation (see BFSOutput), else None
+    trace: Any = None          # LevelTrace when telemetry ran (a tuple of
+                               #   B for a batch), else None
 
 
 def _relax(p, w):
@@ -72,9 +74,6 @@ class SSSPProgram(FrontierProgram):
                                     relax=_relax, csr_edge_vals=extra[-1])
         return plan, PR.make_value_step(engine, graph, relax=_relax,
                                         scan=scan)
-
-    def front_count(self, st):
-        return st.front_cnt
 
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.it <= engine.max_levels

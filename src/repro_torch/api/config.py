@@ -2,10 +2,10 @@
 the port of `repro/api/config.py`.
 
 Same fields and defaults as the JAX config.  A knob whose path is not
-ported yet raises a ValueError at construction, naming the ROADMAP item
-that brings it.  `expand` / `fold` take the port's spellings: "auto" (the
-CUDA kernel on a card, the plain torch formulas on the CPU), "kernel" or
-"reference" (`repro_torch.kernels.select`).
+ported yet (`fault_tolerance`) raises a ValueError at construction, naming
+the ROADMAP item that brings it.  `expand` / `fold` take the port's
+spellings: "auto" (the CUDA kernel on a card, the plain torch formulas on
+the CPU), "kernel" or "reference" (`repro_torch.kernels.select`).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.core.types import Grid2D
+from repro_torch.dist.strategy import get_exchange
 from repro_torch.kernels.select import check_path
 
 
@@ -32,7 +33,13 @@ class BFSConfig:
     expand:      "auto" | "kernel" | "reference" for the chunk scan.
     fold:        "auto" | "kernel" | "reference" for the compaction and
                  the bitmap and delta codecs' encode / decode.
-    exchange:    "flat" (butterfly / auto: ROADMAP A9).
+    exchange:    fold exchange strategy (`dist/strategy.py`): "flat" (one
+                 all-to-all a fold), "butterfly" (log2(C) XOR-paired stages
+                 over the column axis), "auto" (butterfly on power-of-two
+                 C >= 4 over one column axis, flat otherwise; resolved by
+                 `GraphSession` against the planned grid) or an
+                 ExchangeStrategy instance.  Outputs are identical across
+                 strategies.
     direction:   False | None (top-down) | True | "adaptive" | "bottomup";
                  needs the CSR twin, planned on the first such session.
     alpha, beta: enter bottom-up above n / alpha frontier vertices, leave
@@ -42,9 +49,16 @@ class BFSConfig:
                  signature of `kernels.expand.make_expand_fn`'s hooks;
                  it wins over `expand`, and the value programs then run
                  the plain value scan (as in JAX).
-    telemetry: ROADMAP A10; fault_tolerance, ckpt_every: ROADMAP A11;
+    telemetry:   when True every search also returns a
+                 `repro_torch.obs.LevelTrace` (per level: global and
+                 per-processor frontier, scanned edges, folded entries, fold
+                 wire bytes and messages, direction) as `output.trace` and
+                 `GraphSession.last_trace()`.  Part of every engine key;
+                 outputs are identical either way.
+    fault_tolerance, ckpt_every: ROADMAP A11.
     row_axes / col_axes name mesh axes, which the stacked grid does not
-    use.
+    use, except that the butterfly routes over one column axis (as in
+    JAX).
     """
     grid: Any = None
     fold_codec: Any = "list"
@@ -60,7 +74,7 @@ class BFSConfig:
     expand: str = "auto"
     fold: str = "auto"
     bottomup: str = "auto"
-    exchange: str = "flat"
+    exchange: Any = "flat"
     telemetry: bool = False
     fault_tolerance: bool = False
     ckpt_every: int = 1
@@ -71,16 +85,10 @@ class BFSConfig:
             if v is not None and not isinstance(v, tuple):
                 object.__setattr__(self, f, tuple(v))
         self.direction_mode             # raises on a bad spelling
-        unsupported = (
-            ("telemetry", bool(self.telemetry), "A10"),
-            ("fault_tolerance", bool(self.fault_tolerance), "A11"),
-            ("exchange", self.exchange != "flat", "A9"),
-        )
-        for knob, asked, item in unsupported:
-            if asked:
-                raise ValueError(
-                    f"BFSConfig({knob}={getattr(self, knob)!r}) is not "
-                    f"ported to repro_torch yet (ROADMAP {item})")
+        if self.fault_tolerance:
+            raise ValueError(
+                f"BFSConfig(fault_tolerance={self.fault_tolerance!r}) is "
+                f"not ported to repro_torch yet (ROADMAP A11)")
         for knob in ("expand", "fold", "bottomup"):
             check_path(getattr(self, knob), knob=knob)
         if self.dedup not in ("scatter", "sort"):
@@ -106,13 +114,32 @@ class BFSConfig:
             f"'bottomup'")
 
     @property
+    def exchange_name(self) -> str:
+        """The exchange spelling as a cache-key component ("auto" until
+        `resolve_exchange` normalises it against a planned grid)."""
+        ex = self.exchange
+        return ex if isinstance(ex, str) else getattr(ex, "name", repr(ex))
+
+    def resolve_exchange(self, grid: Grid2D) -> "BFSConfig":
+        """This config with exchange="auto" resolved against the planned
+        grid (butterfly on power-of-two C >= 4 over one column axis, flat
+        otherwise) and an explicit strategy validated against it: a
+        butterfly request on a grid it cannot route raises the ValueError
+        here, at session construction, naming the strategy that works."""
+        strat = get_exchange(self.exchange, grid, self.col_axes or ())
+        if isinstance(self.exchange, str) and self.exchange != strat.name:
+            return dataclasses.replace(self, exchange=strat.name)
+        return self
+
+    @property
     def engine_key(self) -> tuple:
         """What makes two configs share one engine: every knob that changes
-        the engine."""
+        the engine (the exchange by name; `GraphSession` resolves "auto"
+        before any engine is keyed)."""
         return (self.fold_codec, self.direction_mode, self.edge_chunk,
                 self.dedup, self.max_levels, self.alpha, self.beta,
                 self.expand_fn, self.expand, self.fold, self.bottomup,
-                self.exchange)
+                self.exchange_name, self.telemetry)
 
     def algo_engine_key(self, program_key: tuple, codec_name: str,
                         max_levels: int) -> tuple:
@@ -122,7 +149,7 @@ class BFSConfig:
         the codec and `max_levels` are per call."""
         return ("algo", program_key, codec_name, self.edge_chunk, self.dedup,
                 max_levels, self.expand_fn, self.expand, self.fold,
-                self.bottomup, self.exchange)
+                self.bottomup, self.exchange_name, self.telemetry)
 
     def resolve_grid(self, n: int) -> Grid2D:
         """Concretise the `grid` spelling against n vertices (padding up)."""

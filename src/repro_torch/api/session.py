@@ -11,7 +11,9 @@ root returns one `BFSOutput`, a (B,) batch returns batched outputs equal to
 the roots run one by one.  `connected_components()`, `sssp(roots)` (over
 the weights planned with `from_edges(..., weights=)`) and
 `multi_bfs(sources, k)` run the value programs through the same engine.
-PyTorch runs eagerly, so there is no compiled executable cache; capturing
+With `BFSConfig(telemetry=True)` every query also returns its per-level
+`LevelTrace` (`output.trace`, `GraphSession.last_trace()`).  PyTorch runs
+eagerly, so there is no compiled executable cache; capturing
 the level loop in CUDA graphs is later work.
 """
 from __future__ import annotations
@@ -187,7 +189,7 @@ class DistGraph:
                 max_levels=config.max_levels, expand=config.expand,
                 expand_fn=config.expand_fn, fold=config.fold,
                 dedup=config.dedup, bottomup=config.bottomup,
-                exchange=config.exchange)
+                exchange=config.exchange, telemetry=config.telemetry)
             self._engines[key] = eng
         return eng
 
@@ -213,6 +215,10 @@ class GraphSession:
     def __init__(self, graph: DistGraph, config: BFSConfig = None):
         self.graph = graph
         self.config = config if config is not None else graph.config
+        # exchange="auto" resolves against the PLANNED grid and an explicit
+        # strategy is validated here, so every engine below keys on the
+        # concrete strategy and an impossible request fails now
+        self.config = self.config.resolve_exchange(graph.grid)
         if self.config.grid is not None:
             want = self.config.resolve_grid(graph.n)
             if want != graph.grid:
@@ -225,6 +231,22 @@ class GraphSession:
             csr = graph.ensure_csr()
             self.extra = (csr["row_off"], csr["col_idx"])
         self.engine = graph.engine_for(self.config)
+        # the last LevelTrace (scalar) / tuple of traces (batch) of THIS
+        # session's queries; None until a telemetry=True query completes
+        self._last_trace = None
+
+    def last_trace(self):
+        """The per-level `repro_torch.obs.LevelTrace` of this session's most
+        recent query: one trace for a scalar query, a tuple of B for a
+        batched one.  None unless the config has telemetry=True and a
+        query has run."""
+        return self._last_trace
+
+    def _traced(self, out):
+        """Keep a query's trace as `last_trace()`; returns the output."""
+        if out.trace is not None:
+            self._last_trace = out.trace
+        return out
 
     def bfs(self, roots, validate=False) -> BFSOutput:
         """Search from a scalar root or a (B,) batch of roots.
@@ -264,7 +286,7 @@ class GraphSession:
                 index = EdgeIndex(edges, n)
             for root, lv, pr in zip(np.atleast_1d(roots_np), levels, preds):
                 validate_bfs(edges, lv[:n], pr[:n], int(root), index=index)
-        return out
+        return self._traced(out)
 
     # ------------------------------------------------------------------
     # Frontier programs beyond BFS (DESIGN.md sec. 8)
@@ -291,7 +313,7 @@ class GraphSession:
                 edge_chunk=cfg.edge_chunk, max_levels=max_levels,
                 expand=cfg.expand, expand_fn=cfg.expand_fn, fold=cfg.fold,
                 dedup=cfg.dedup, bottomup=cfg.bottomup,
-                exchange=cfg.exchange)
+                exchange=cfg.exchange, telemetry=cfg.telemetry)
             self.graph._engines[key] = eng
         return eng
 
@@ -320,7 +342,8 @@ class GraphSession:
         max_levels = self.graph.grid.n + 1     # diameter bound
         eng = self._algo_engine(ConnectedComponentsProgram(), fold_codec,
                                 max_levels)
-        return eng.run(self.graph.csc, None, self._algo_csr_extra())
+        return self._traced(eng.run(self.graph.csc, None,
+                                    self._algo_csr_extra()))
 
     def sssp(self, roots, fold_codec=None) -> SSSPOutput:
         """Shortest distances over the planned per-edge uint8 weights.
@@ -341,8 +364,10 @@ class GraphSession:
         eng = self._algo_engine(SSSPProgram(), fold_codec, max_levels)
         extra = (self.graph.weights,) + self._algo_csr_extra(weights=True)
         if roots_np.ndim == 0:
-            return eng.run(self.graph.csc, int(roots_np), extra)
-        return eng.run_batch(self.graph.csc, roots_np.tolist(), extra)
+            return self._traced(eng.run(self.graph.csc, int(roots_np),
+                                        extra))
+        return self._traced(eng.run_batch(self.graph.csc, roots_np.tolist(),
+                                          extra))
 
     def multi_bfs(self, sources, k: int | None = None,
                   fold_codec=None) -> MultiBFSOutput:
@@ -361,4 +386,5 @@ class GraphSession:
         max_levels = int(k) if k is not None else self.config.max_levels
         eng = self._algo_engine(MultiSourceBFSProgram(), fold_codec,
                                 max_levels)
-        return eng.run(self.graph.csc, sources_np, self._algo_csr_extra())
+        return self._traced(eng.run(self.graph.csc, sources_np,
+                                    self._algo_csr_extra()))

@@ -113,3 +113,5 @@ class BFSOutput:
                                   #   bottom-up), (B, max_levels) for a
                                   #   batch; None without direction
                                   #   optimisation
+    trace: object = None          # obs.LevelTrace when telemetry ran (a
+                                  #   tuple of B for a batch), else None

@@ -7,10 +7,11 @@ operations on those dims:
 
   row_gather      (paper line 13)  all_gather within a processor-column:
                   processor (i, j) receives x[:, j] from every grid row;
-  col_all_to_all  (paper line 17)  the flat all_to_all within a
+  col_all_to_all  (paper line 17)  the all_to_all within a
                   processor-row: recv[i, j, m] = x[i, m, j], the sender and
                   receiver column axes swapped -- exactly
-                  `repro/dist/strategy.py:emulate_exchange(x, "flat")`;
+                  the JAX package's `emulate_exchange(x, "flat")`; routed
+                  by the bound exchange strategy;
   psum_all        a sum over the grid.
 
 The interface is the one a `torch.distributed` topology (one GPU per
@@ -23,13 +24,21 @@ import dataclasses
 import torch
 
 from repro_torch.core.types import Grid2D
+from repro_torch.dist.strategy import ExchangeStrategy, FlatExchange
 
 
 @dataclasses.dataclass(frozen=True)
 class StackedTopology:
-    """The whole processor grid as leading (R, C) dims on one device."""
+    """The whole processor grid as leading (R, C) dims on one device.
+
+    `exchange` binds an `ExchangeStrategy` (`dist/strategy.py`, flat by
+    default): `col_all_to_all` routes through it, so every fold codec and
+    the predecessor resolution pick the strategy up without knowing it
+    exists."""
     grid: Grid2D
     device: torch.device
+    exchange: ExchangeStrategy = dataclasses.field(
+        default_factory=FlatExchange)
 
     def coords(self):
         """Every processor's (i, j) grid coordinates, row-major."""
@@ -45,8 +54,14 @@ class StackedTopology:
 
     def col_all_to_all(self, x):
         """(R, C, C, ...) with x[i, j, d] = processor (i, j)'s payload for
-        column d -> recv[i, j, m] = x[i, m, j] (what column m sent to j)."""
-        return x.transpose(1, 2).contiguous()
+        column d -> recv[i, j, m] = x[i, m, j] (what column m sent to j),
+        routed by the bound exchange strategy."""
+        return self.exchange.all_to_all(x)
+
+    def with_exchange(self, strategy) -> "StackedTopology":
+        """This topology with an `ExchangeStrategy` bound (the engine binds
+        its resolved strategy here so every exchange routes through it)."""
+        return dataclasses.replace(self, exchange=strategy)
 
     def psum_all(self, x):
         """Sum of a per-processor (R, C) quantity over the grid."""

@@ -1,6 +1,6 @@
 """JAX-side reference searches for the port's parity tests
-(tests/test_torch_bfs.py, tests/test_torch_direction.py), on forced host
-devices.
+(tests/test_torch_bfs.py, test_torch_direction.py, test_torch_algos.py,
+test_torch_strategy.py, test_torch_obs.py), on forced host devices.
 
 Runs `DistGraph.from_edges(edges, BFSConfig(grid=(R, C))).session().bfs`
 of the JAX package for every requested grid: one scalar search from the
@@ -20,17 +20,29 @@ under "{tag}_sssp_*", `multi_bfs(roots)` under "{tag}_mbfs_*", for the
 list codec `multi_bfs(roots, k=2)` under "{tag}_khop_*" and, for the delta
 codec, `bfs(roots)` under "{tag}_bfs_*" (tag = "{RxC}_{direction}_{codec}").
 
+With --exchange EX every session runs `BFSConfig(exchange=EX)` ("flat",
+"butterfly" or "auto"); with --telemetry every session runs
+`BFSConfig(telemetry=True)` and each result's `LevelTrace` is written too,
+field by field, under "{prefix}_trace{b}_{field}" (b = 0 for a scalar
+search, the batch row otherwise).
+
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
-[--algos] (GRID = RxC).  EDGES.npz holds `edges` (2, E), `roots` (B,) and
-`n`.
+[--algos] [--exchange EX] [--telemetry] (GRID = RxC).  EDGES.npz holds
+`edges` (2, E), `roots` (B,) and `n`.
 """
+import dataclasses
 import os
 import sys
 
-FLAGS = ("--direction", "--algos")
-ARGS = [a for a in sys.argv[3:] if a not in FLAGS]
-DIRECTION = "--direction" in sys.argv[3:]
-ALGOS = "--algos" in sys.argv[3:]
+OPTS = sys.argv[3:]
+EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
+    else "flat"
+FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE)
+ARGS = [a for a in OPTS if a not in FLAGS]
+DIRECTION = "--direction" in OPTS
+ALGOS = "--algos" in OPTS
+TELEMETRY = "--telemetry" in OPTS
+KNOBS = dict(exchange=EXCHANGE, telemetry=TELEMETRY)
 DIRECTION_CONFIGS = [(False, "bitmap"), (True, "list"), (True, "bitmap"),
                      ("bottomup", "list"), ("bottomup", "bitmap")]
 ALGO_CONFIGS = [(d, c) for d in (False, True, "bottomup")
@@ -57,6 +69,12 @@ def put(out, prefix, res, fields=("level", "pred", "n_levels")):
     out[f"{prefix}_edges"] = np.asarray(res.edges_scanned, np.int64)
     if res.directions is not None:
         out[f"{prefix}_directions"] = np.asarray(res.directions)
+    if res.trace is not None:
+        traces = res.trace if isinstance(res.trace, tuple) else (res.trace,)
+        for b, tr in enumerate(traces):
+            for f in dataclasses.fields(tr):
+                out[f"{prefix}_trace{b}_{f.name}"] = np.asarray(
+                    getattr(tr, f.name))
 
 
 def put_algos(out, graph, grid, roots):
@@ -64,7 +82,7 @@ def put_algos(out, graph, grid, roots):
     R, C = grid
     for direction, codec in ALGO_CONFIGS:
         sess = graph.session(BFSConfig(grid=grid, direction=direction,
-                                       fold_codec=codec))
+                                       fold_codec=codec, **KNOBS))
         tag = f"{R}x{C}_{direction_tag(direction)}_{codec}"
         put(out, f"{tag}_cc", sess.connected_components(),
             ("labels", "n_iters"))
@@ -86,14 +104,14 @@ for R, C in GRIDS:
     graph = DistGraph.from_edges(
         edges, BFSConfig(grid=(R, C)), mesh=mesh, n=n,
         weights=data["weights"] if ALGOS else None)
-    sess = graph.session()
+    sess = graph.session(BFSConfig(grid=(R, C), **KNOBS))
     tag = f"{R}x{C}"
     put(out, f"{tag}_scalar", sess.bfs(int(roots[0])))
     put(out, f"{tag}_batch", sess.bfs(roots))
     if DIRECTION:
         for direction, codec in DIRECTION_CONFIGS:
             sess = graph.session(BFSConfig(grid=(R, C), direction=direction,
-                                           fold_codec=codec))
+                                           fold_codec=codec, **KNOBS))
             put(out, f"{tag}_{direction_tag(direction)}_{codec}_batch",
                 sess.bfs(roots))
     if ALGOS:

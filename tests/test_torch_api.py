@@ -1,6 +1,7 @@
 """The port's session surface: entry points refuse to run without a card
 unless told device="cpu"; every knob the port does not support yet raises,
-naming its ROADMAP item; the direction knobs are accepted and key the
+naming its ROADMAP item; the exchange and telemetry knobs are accepted and
+resolve as JAX's config does; the direction knobs are accepted and key the
 engine cache; `check_vertex_ids` speaks as the JAX one does; the
 torch R-MAT generator is deterministic per seed, in range and symmetric."""
 import numpy as np
@@ -28,12 +29,40 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("telemetry", True, "A10"), ("fault_tolerance", True, "A11"),
-    ("exchange", "butterfly", "A9"), ("exchange", "auto", "A9"),
+    ("fault_tolerance", True, "A11"),
 ])
 def test_unsupported_knobs_name_their_roadmap_item(knob, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         BFSConfig(**{knob: value})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("telemetry", True), ("exchange", "butterfly"), ("exchange", "auto"),
+])
+def test_exchange_and_telemetry_knobs_are_accepted(knob, value):
+    """Accepted as the JAX config accepts them: the same value and
+    exchange name, their own engine keys, and `resolve_exchange` against
+    grids of 1, 2, 3, 4 and 8 columns resolving -- or refusing, naming
+    flat -- as JAX's does."""
+    from repro.api import BFSConfig as JaxBFSConfig
+    from repro.core.types import Grid2D as JaxGrid2D
+    from repro_torch.core.types import Grid2D
+
+    ours, theirs = BFSConfig(**{knob: value}), JaxBFSConfig(**{knob: value})
+    assert getattr(ours, knob) == getattr(theirs, knob) == value
+    assert ours.exchange_name == theirs.exchange_name
+    assert ours.engine_key != BFSConfig().engine_key
+    assert ours.algo_engine_key(("cc",), "bitmap", 9) \
+        != BFSConfig().algo_engine_key(("cc",), "bitmap", 9)
+    for C in (1, 2, 3, 4, 8):
+        try:
+            want = theirs.resolve_exchange(JaxGrid2D(1, C, 8 * C)).exchange
+        except ValueError as e:
+            assert "flat" in str(e)
+            with pytest.raises(ValueError, match="flat"):
+                ours.resolve_exchange(Grid2D(1, C, 8 * C))
+            continue
+        assert ours.resolve_exchange(Grid2D(1, C, 8 * C)).exchange == want
 
 
 @pytest.mark.parametrize("knobs", [
