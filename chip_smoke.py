@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two session paths and its kernel-stage surface
-once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's two session paths, its kernel-stage surface and
+its fault-tolerant level loop once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--scale 26] [--roots 64] [--td-roots 16]
                           [--batch 8] [--dir-batch 4] [--sssp-roots 4]
@@ -158,6 +158,32 @@ Phases, one line or more each on stdout:
                direction run, launched (> 0); one root's wall time under
                flat / butterfly with telemetry off / on, in turns (no limit
                asserted); the phase's seconds and peak memory;
+  15. ft       after 14, mid-traversal fault tolerance on the resident
+               SCALE 26 graph (`BFSConfig(fault_tolerance=True)`, every
+               query with a `RecoveryPlan`): (a) the segmented level loop
+               -- top-down BFS from phase 4's first 4 roots at ckpt_every=1
+               equal to phase 4, direction-optimised (bitmap) from 2 roots
+               equal to phase 7, CC and one SSSP root at ckpt_every=2 equal
+               to phase 9, each search's wall time beside the same root's
+               in phase 4 / 7 / 9 (what segmentation costs), B1 and B2, B3,
+               B4 and B7 on the direction run, B8 on the value programs
+               launched (> 0); (b) a transient loss crossing level 3
+               absorbed by one retry, equal to phase 4; (c) a persistent
+               loss crossing level 3 raising UnrecoverableLoss, its
+               snapshot (bytes, export ms) resumed in a fresh session equal
+               to phase 4, preds included; (d) one search through a
+               `TraversalCheckpointer` in a temporary directory under
+               build/ (seconds per checkpoint, bytes on disk), the latest
+               checkpoint loaded and resumed, equal to phase 4; then, with
+               the resident graph dropped, (e) `ElasticCoordinator` over
+               the edge list on the card: top-down BFS and CC under a
+               persistent loss crossing level 3 shrink 2x2 -> 1x3 and
+               resume -- levels, n_levels, edges_scanned equal to phase 4
+               and preds validated on the card, labels equal to phase 9 --
+               with the memory in use when each grid is planned and the
+               peak; every plan's retries equal to its injector's fires
+               less the losses that escalated, and
+               time_to_first_resumed_level_s printed;
   14b. exch-8x8 after 11, on its 8x8 graph: exchange="auto" resolves to
                the butterfly (3 stages); BFS both ways, CC and multi-BFS
                under list and delta equal flat, their traces reading 3
@@ -176,10 +202,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -1117,6 +1145,367 @@ def run_exchange_obs(torch, args, graph, td_roots, scalar, dscalar, vals,
         "dir_launches": dir_launches, "peak_bytes": peak,
         "seconds": phase_s}
     phases.end("14 exch-obs")
+
+
+def ft_plan(torch, *, injector=None, checkpointer=None, resume=None,
+            retries=2):
+    """A RecoveryPlan with a near-zero backoff (the drills' policy)."""
+    from repro_torch.runtime import RecoveryPlan, RetryPolicy
+    return RecoveryPlan(injector=injector, checkpointer=checkpointer,
+                        resume=resume,
+                        policy=RetryPolicy(max_retries=retries,
+                                           backoff_s=1e-4, jitter_s=1e-4,
+                                           seed=3))
+
+
+def check_retries(plan, what: str, escalations: int = 0) -> None:
+    """Every retry the plan counted was one its injector caused: each fire
+    is retried except the one a loss escalates with."""
+    fired = 0 if plan.injector is None else plan.injector.count
+    if plan.stats["retries"] != fired - escalations:
+        raise AssertionError(
+            f"{what}: {plan.stats['retries']} retries, but the injector "
+            f"fired {fired} times and {escalations} loss(es) escalated")
+
+
+class TimedExport:
+    """Wraps an engine's `export_carry`: the host seconds of each call."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def snapshot_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(snapshot_bytes(v) for v in tree.values())
+    return int(tree.nbytes)
+
+
+def run_ft(torch, args, graph, td_roots, scalar, dscalar, vals, report,
+           phases):
+    """Phase 15 (a)-(d): the segmented level loop, retry, resume and a
+    checkpoint directory on the resident SCALE 26 graph, held to phases 4,
+    7 and 9."""
+    from repro_torch.algos.engine import _clone_run
+    from repro_torch.api import BFSConfig
+    from repro_torch.runtime import (DeviceLossInjector,
+                                     TraversalCheckpointer,
+                                     UnrecoverableLoss)
+
+    grid = graph.grid
+    n = graph.n
+    base = dict(grid=(grid.R, grid.C), edge_chunk=args.edge_chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rep = {}
+    td_s = report["run"]["search_s"]
+    dir_s = report["dir_run"]["search_s"]
+
+    def bfs_equal(out, k):
+        lv, pr, nl, es = scalar[k]
+        return (torch.equal(out.level.cpu(), lv)
+                and torch.equal(out.pred.cpu(), pr)
+                and int(out.n_levels) == nl and out.edges_scanned == es)
+
+    # (a) segmented searches, ckpt_every=1 (BFS) and 2 (CC, SSSP)
+    sess = graph.session(BFSConfig(**base, fault_tolerance=True,
+                                   ckpt_every=1))
+    eng = sess.engine
+    assert eng.fault_tolerance and eng.expand_path == "kernel" \
+        and eng.fold_path == "kernel"
+    zero_counts()
+    n_td = min(4, len(scalar))
+    rep["td_s"] = []
+    for k, r in enumerate(td_roots[:n_td]):
+        plan = ft_plan(torch)
+        out, dt = timed(torch, lambda: sess.bfs(r, recovery=plan))
+        if not bfs_equal(out, k):
+            raise AssertionError(f"FT bfs root {r} differs from phase 4")
+        check_retries(plan, f"FT bfs root {r}")
+        rep["td_s"].append(dt)
+        log(f"[15 ft] (a) ckpt_every=1 bfs root {r}: equal to phase 4, "
+            f"{plan.stats['segments']} segments, {dt:.3f} s against "
+            f"{td_s[k]:.3f} s in phase 4 ({dt / td_s[k] - 1:+.2%})")
+    td_launches = read_counts()
+    require_launched(td_launches, ("expand_chunk", "compact_rows"),
+                     "phase 15's segmented top-down search")
+    # what a segment adds on the device: the clone of its input state (and
+    # trace) the segment advances, timed on a carry two levels in
+    carry = eng.ft_start(graph.csc, [td_roots[0]], *sess.extra,
+                         batched=True)
+    for _ in range(2):
+        carry = eng.ft_segment(graph.csc, carry, *sess.extra, batched=True)
+    st = carry[0]["st"]
+    clone_bytes = sum(t.numel() * t.element_size() for t in (
+        st.level, st.pred, st.visited, st.front, st.front_cnt))
+    clone_ms = cuda_ms(torch, lambda: _clone_run(carry[0]))
+    del carry, st
+    rep.update(clone_ms=clone_ms, clone_bytes=clone_bytes)
+    log(f"[15 ft] (a) a segment's state clone: {clone_bytes} B in "
+        f"{clone_ms:.4f} device ms ({2 * clone_bytes / clone_ms / 1e6:.0f} "
+        f"GB/s read + written), once a segment")
+    dsess = graph.session(BFSConfig(**base, direction=True,
+                                    fold_codec="bitmap",
+                                    fault_tolerance=True, ckpt_every=1))
+    zero_counts()
+    rep["dir_s"] = []
+    for k, r in enumerate(td_roots[:min(2, len(dscalar))]):
+        plan = ft_plan(torch)
+        out, dt = timed(torch, lambda: dsess.bfs(r, recovery=plan))
+        check_retries(plan, f"FT direction bfs root {r}")
+        lv, pr, nl, es, dr = dscalar[k]
+        if not (torch.equal(out.level.cpu(), lv)
+                and torch.equal(out.pred.cpu(), pr)
+                and int(out.n_levels) == nl and out.edges_scanned == es
+                and torch.equal(out.directions.cpu(), dr)):
+            raise AssertionError(f"FT direction bfs root {r} differs from "
+                                 f"phase 7")
+        rep["dir_s"].append(dt)
+        live = dr[dr >= 0].tolist()
+        log(f"[15 ft] (a) ckpt_every=1 direction bfs root {r}: equal to "
+            f"phase 7 ({''.join('TB'[d] for d in live)}), {dt:.3f} s "
+            f"against {dir_s[k]:.3f} s in phase 7 "
+            f"({dt / dir_s[k] - 1:+.2%})")
+    dir_launches = read_counts()
+    require_launched(dir_launches, ("expand_chunk", "compact_rows",
+                                    "pack_bits", "unpack_bits",
+                                    "bottomup_chunk"),
+                     "phase 15's segmented direction search")
+    vsess = graph.session(BFSConfig(**base, fault_tolerance=True,
+                                    ckpt_every=2))
+    zero_counts()
+    plan = ft_plan(torch)
+    cc, cc_s = timed(torch, lambda: vsess.connected_components(
+        recovery=plan))
+    check_retries(plan, "FT CC")
+    if not same(torch, (cc.labels, int(cc.n_iters), cc.edges_scanned),
+                vals["cc"]):
+        raise AssertionError("FT CC differs from phase 9")
+    r = vals["sssp_roots"][0]
+    plan = ft_plan(torch)
+    sp, sp_s = timed(torch, lambda: vsess.sssp(r, recovery=plan))
+    check_retries(plan, f"FT sssp root {r}")
+    if not same(torch, (sp.dist, int(sp.n_iters), sp.edges_scanned),
+                vals["sssp"][0]):
+        raise AssertionError(f"FT sssp root {r} differs from phase 9")
+    val_launches = read_counts()
+    require_launched(val_launches, ("expand_chunk_values", "compact_rows"),
+                     "phase 15's segmented value programs")
+    v = report["values"]
+    rep.update(cc_s=cc_s, sssp_s=sp_s)
+    log(f"[15 ft] (a) ckpt_every=2 connected_components: equal to phase 9, "
+        f"{cc_s:.3f} s against {v['cc_s']:.3f} s; sssp root {r}: equal to "
+        f"phase 9, {sp_s:.3f} s against {v['sssp_s'][0]:.3f} s")
+    del cc, sp, out
+
+    # (b) a transient loss crossing level 3: one retry absorbs it
+    r = td_roots[0]
+    plan = ft_plan(torch, injector=DeviceLossInjector(3, transient=True))
+    out, dt = timed(torch, lambda: sess.bfs(r, recovery=plan))
+    if not bfs_equal(out, 0):
+        raise AssertionError("bfs after a transient loss differs from "
+                             "phase 4")
+    check_retries(plan, "transient loss")
+    if plan.injector.count != 1:
+        raise AssertionError(f"transient loss: {plan.injector.count} fires")
+    rep["transient_s"] = dt
+    log(f"[15 ft] (b) transient loss at level 3, bfs root {r}: equal to "
+        f"phase 4, retries {plan.stats['retries']} = fires "
+        f"{plan.injector.count}, {dt:.3f} s")
+
+    # (c) a persistent loss crossing level 3: its snapshot resumes
+    eng.export_carry = timer = TimedExport(eng.export_carry)
+    plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=3))
+    t0 = time.perf_counter()
+    try:
+        sess.bfs(r, recovery=plan)
+        raise AssertionError("the persistent loss did not escalate")
+    except UnrecoverableLoss as e:
+        snap, level = e.snapshot, e.level
+    fail_s = time.perf_counter() - t0
+    check_retries(plan, "persistent loss", escalations=1)
+    if plan.injector.count != 3:
+        raise AssertionError(f"persistent loss: {plan.injector.count} "
+                             f"fires")
+    fresh = graph.session(BFSConfig(**base, fault_tolerance=True,
+                                    ckpt_every=1))
+    plan2 = ft_plan(torch, resume=snap)
+    out, dt = timed(torch, lambda: fresh.bfs(r, recovery=plan2))
+    if not bfs_equal(out, 0):
+        raise AssertionError("the resumed bfs differs from phase 4")
+    rep.update(persistent_fail_s=fail_s, resume_s=dt, resumed_from=level,
+               export_s=timer.seconds, snapshot_bytes=snapshot_bytes(
+                   snap["arrays"]),
+               t_first_resumed_s=plan2.stats[
+                   "time_to_first_resumed_level_s"])
+    log(f"[15 ft] (c) persistent loss at level 3, bfs root {r}: "
+        f"UnrecoverableLoss, snapshot after level {level}, {fail_s:.3f} s "
+        f"(retries {plan.stats['retries']}, fires {plan.injector.count}); "
+        f"snapshot {rep['snapshot_bytes']} B exported in "
+        f"{timer.seconds[-1] * 1e3:.1f} ms; resumed in a fresh session: "
+        f"equal to phase 4 (preds included), {dt:.3f} s, "
+        f"time_to_first_resumed_level_s "
+        f"{rep['t_first_resumed_s']:.4f}")
+    del out, snap
+
+    # (d) one query through a checkpoint directory, resumed from disk
+    class TimedCheckpointer(TraversalCheckpointer):
+        """Writes each checkpoint before the next segment (timed)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.save_s = []
+
+        def save(self, snapshot):
+            t0 = time.perf_counter()
+            super().save(snapshot)
+            self.join()
+            self.save_s.append(time.perf_counter() - t0)
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        timer.seconds = []
+        ck = TimedCheckpointer(d, f"bfs root {r}")
+        plan = ft_plan(torch, checkpointer=ck, retries=0,
+                       injector=DeviceLossInjector(3, fires=1))
+        try:
+            sess.bfs(r, recovery=plan)
+            raise AssertionError("the loss did not escalate")
+        except UnrecoverableLoss:
+            pass
+        check_retries(plan, "checkpointed loss", escalations=1)
+        n_ck = len(ck.save_s)
+        on_disk = sum(os.path.getsize(os.path.join(root, f))
+                      for root, _, files in os.walk(d) for f in files)
+        # a new process would open the directory the same way: the latest
+        # checkpoint, its query key checked
+        t0 = time.perf_counter()
+        disk = TraversalCheckpointer(d, f"bfs root {r}").load()
+        load_s = time.perf_counter() - t0
+    plan2 = ft_plan(torch, resume=disk)
+    out, dt = timed(torch, lambda: fresh.bfs(r, recovery=plan2))
+    if not bfs_equal(out, 0) or plan2.stats["resumes"] != 1:
+        raise AssertionError("bfs resumed from disk differs from phase 4")
+    per_ck = [a + b for a, b in zip(timer.seconds, ck.save_s)]
+    rep.update(ckpt_s=per_ck, ckpt_dir_bytes=on_disk, load_s=load_s,
+               disk_resume_s=dt, disk_resumed_from=plan2.stats[
+                   "resumed_from_level"],
+               disk_t_first_s=plan2.stats["time_to_first_resumed_level_s"])
+    log(f"[15 ft] (d) TraversalCheckpointer: {n_ck} checkpoints before the "
+        f"loss at level 3 ({on_disk} B on disk), seconds per checkpoint "
+        f"(export + write) {', '.join(f'{t:.3f}' for t in per_ck)}; the "
+        f"latest loaded in {load_s:.3f} s and resumed at level "
+        f"{plan2.stats['resumed_from_level']}: equal to phase 4, {dt:.3f} s,"
+        f" time_to_first_resumed_level_s {rep['disk_t_first_s']:.4f}")
+    del disk
+    del eng.export_carry
+    peak = torch.cuda.max_memory_allocated()
+    rep.update(td_launches=td_launches, dir_launches=dir_launches,
+               val_launches=val_launches, peak_bytes=peak)
+    log(f"[15 ft] (a)-(d) peak memory {peak / 2**30:.2f} GiB; launches "
+        f"top-down {td_launches}, direction {dir_launches}, values "
+        f"{val_launches}")
+    rep["seconds_ad"] = time.perf_counter() - t_phase
+    report["ft"] = rep
+    phases.end("15 ft")
+
+
+def run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
+                   report, phases):
+    """Phase 15 (e), after the resident graph is dropped: the elastic
+    shrink 2x2 -> 1x3 of top-down BFS and CC under a persistent loss at
+    level 3, held to phases 4 and 9."""
+    from repro_torch.api import BFSConfig
+    from repro_torch.core.validate import validate_bfs
+    from repro_torch.runtime import DeviceLossInjector, ElasticCoordinator
+
+    R, C = (int(x) for x in args.grid.lower().split("x"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rep = {"resident_gib": torch.cuda.memory_allocated() / 2**30}
+    plans_at = []
+
+    class Probe(ElasticCoordinator):
+        """Records the device memory in use as each grid is planned."""
+
+        def _plan(self, config):
+            plans_at.append((config.grid, torch.cuda.memory_allocated()))
+            return super()._plan(config)
+
+    config = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
+                       fault_tolerance=True, ckpt_every=1)
+    zero_counts()
+    for what, method, arg in (("bfs", "bfs", td_roots[0]),
+                              ("cc", "connected_components", None)):
+        plans_at.clear()
+        torch.cuda.reset_peak_memory_stats()
+        coord = Probe(edges, config, n=n, device=edges.device)
+        if coord.edges is not edges:
+            raise AssertionError("the coordinator copied the edge list")
+        plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=3))
+        out, dt = timed(torch, lambda: coord.run(method, arg, plan=plan))
+        peak = torch.cuda.max_memory_allocated()
+        if coord.grids != [(R, C), (1, 3)] or coord.shrinks != 1:
+            raise AssertionError(f"elastic {what}: grids {coord.grids}")
+        check_retries(plan, f"elastic {what}", escalations=1)
+        if plan.injector.count != 3:
+            raise AssertionError(f"elastic {what}: {plan.injector.count} "
+                                 f"fires")
+        if what == "bfs":
+            lv, _, nl, es = scalar[0]
+            level, pred = out.level[:n], out.pred[:n]
+            if not (torch.equal(level.cpu(), lv[:n])
+                    and int(out.n_levels) == nl and out.edges_scanned == es):
+                raise AssertionError("elastic bfs differs from phase 4")
+            t0 = time.perf_counter()
+            validate_bfs(edges, level, pred, td_roots[0], index=index)
+            val_s = time.perf_counter() - t0
+            pred_same = torch.equal(pred.cpu(), scalar[0][1][:n])
+            note = (f"levels, n_levels, edges_scanned equal to phase 4, "
+                    f"preds validated on the card in {val_s:.1f} s (equal "
+                    f"to phase 4's 2x2 preds: {pred_same})")
+            del level, pred
+        else:
+            labels, iters, es = vals["cc"]
+            if not (torch.equal(out.labels[:n].cpu(), labels[:n])
+                    and int(out.n_iters) == iters
+                    and out.edges_scanned == es):
+                raise AssertionError("elastic CC differs from phase 9")
+            note = "labels, n_iters, edges_scanned equal to phase 9"
+        stats = plan.stats
+        rep[what] = {"s": dt, "peak_bytes": peak, "grids": coord.grids,
+                     "resumed_from": stats["resumed_from_level"],
+                     "t_first_resumed_s":
+                         stats["time_to_first_resumed_level_s"],
+                     "allocated_at_plan": [(list(g), b)
+                                           for g, b in plans_at]}
+        log(f"[15 ft] (e) elastic {what}: grids "
+            f"{' -> '.join(f'{a}x{b}' for a, b in coord.grids)}, resumed "
+            f"from level {stats['resumed_from_level']}; {note}; {dt:.3f} s,"
+            f" time_to_first_resumed_level_s "
+            f"{stats['time_to_first_resumed_level_s']:.4f}; allocated "
+            f"when each grid was planned "
+            f"{', '.join(f'{g}: {b / 2**30:.2f} GiB' for g, b in plans_at)}"
+            f"; peak {peak / 2**30:.2f} GiB")
+        del out, coord
+    launches = read_counts()
+    require_launched(launches, ("expand_chunk", "compact_rows",
+                                "expand_chunk_values"),
+                     "phase 15's elastic runs")
+    rep["launches"] = launches
+    phase_s = time.perf_counter() - t_phase
+    rep["seconds"] = phase_s
+    report["ft_elastic"] = rep
+    log(f"[15 ft] (e) {phase_s:.1f} s; launches {launches}")
+    phases.end("15 ft-elastic")
 
 
 def run_exchange_8x8(torch, graph, knobs, roots, report):
@@ -2132,7 +2521,16 @@ def main() -> int:
     run_values_direction(torch, args, graph, vals, kernels, report, phases)
     run_exchange_obs(torch, args, graph, td_roots, scalar, dscalar, vals,
                      report, phases)
-    del graph, edges, weights, index, sess, dsess, eng, deng, vals
+    run_ft(torch, args, graph, td_roots, scalar, dscalar, vals, report,
+           phases)
+    # phase 3b's arguments are views of the graph's CSC: drop them with it
+    del graph, weights, sess, dsess, eng, deng, cumul, front, ftot, \
+        col_off, row_idx, words
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
+                   report, phases)
+    del edges, index, vals
     torch.cuda.empty_cache()
     run_delta(torch, dev, args, kernels, report, phases)
     report["kernels"] = kernels

@@ -70,6 +70,18 @@ class ConnectedComponentsProgram(FrontierProgram):
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.it <= engine.max_levels
 
+    def level_count(self, st) -> int:
+        return st.it
+
+    def export_state(self, engine, st, n: int) -> dict:
+        return PR.export_value_state(engine.grid, st, n)
+
+    def import_state(self, engine, snap: dict) -> ValueState:
+        # padding vertices of the new grid are isolated self-labelled
+        # components -- exactly what an uninterrupted run holds after level 1
+        return PR.import_value_state(engine.grid, snap, engine.device,
+                                     pad="gid", ops=engine.fold_ops)
+
     def finalize(self, engine, st):
         return PR.global_order(PR.owned_rows(st.val, engine.grid)), st.it
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.algos import program as PR
@@ -384,6 +385,37 @@ class DirectionProgram(FrontierProgram):
 
     def keep_going(self, engine, st, total: int) -> bool:
         return self.inner.keep_going(engine, st.inner, total)
+
+    def level_count(self, st) -> int:
+        return self.inner.level_count(st.inner)
+
+    def export_state(self, engine, st, n: int) -> dict:
+        """Inner snapshot nested under "inner" + the direction bookkeeping
+        in JAX's `DirState` form: `dir` the hysteresis (the last level's
+        direction, 0 before the first), `dirs` the per-level directions
+        (max_levels,) padded -1, `k` the levels run."""
+        L = engine.max_levels
+        dirs = np.full((L,), -1, np.int32)
+        taken = st.dirs[:L]
+        dirs[:len(taken)] = taken
+        snap = {"inner": self.inner.export_state(engine, st.inner, n),
+                "dir": np.asarray(st.dirs[-1] if st.dirs else 0, np.int32),
+                "dirs": dirs,
+                "k": np.asarray(len(st.dirs), np.int32)}
+        snap["levels_done"] = snap["inner"]["levels_done"]
+        return snap
+
+    def import_state(self, engine, snap: dict) -> DirState:
+        """The port's direction list from JAX's form: the first `k`
+        entries of `dirs`, whose last is the hysteresis (`dir`)."""
+        k = int(snap["k"])
+        dirs = [int(d) for d in np.asarray(snap["dirs"])[:k]]
+        if dirs and dirs[-1] != int(snap["dir"]):
+            raise ValueError(
+                f"direction snapshot disagrees with itself: dir="
+                f"{int(snap['dir'])} but dirs[k-1]={dirs[-1]}")
+        return DirState(inner=self.inner.import_state(engine, snap["inner"]),
+                        dirs=dirs)
 
     def finalize(self, engine, st):
         L = engine.max_levels

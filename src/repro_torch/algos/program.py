@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import frontier as F
@@ -106,6 +107,29 @@ class FrontierProgram:
         """Per-search outputs -> output object (B=None for a scalar
         search, else the batch size)."""
         raise NotImplementedError
+
+    # -- mid-traversal checkpointing (DESIGN.md sec. 15) ---------------------
+
+    def level_count(self, st) -> int:
+        """The state's 1-based level / iteration counter (a host int: the
+        segmented driver's progress readout, no device read)."""
+        raise NotImplementedError
+
+    def export_state(self, engine, st, n: int) -> dict:
+        """One search's stacked state -> flat dict of numpy arrays in
+        GLOBAL vertex-id order, sliced to the raw `n` -- the
+        grid-independent half of the checkpoint schema, the JAX package's
+        array for array.  Must include a 0-d `levels_done` entry."""
+        raise NotImplementedError(
+            f"{self.name} does not support mid-traversal checkpointing")
+
+    def import_state(self, engine, snap: dict):
+        """Inverse of `export_state` onto ENGINE's grid (which need not be
+        the grid that exported `snap`): a stacked state on the engine's
+        device, re-padded to the new grid and with per-processor caches
+        rebuilt from the authoritative global state."""
+        raise NotImplementedError(
+            f"{self.name} does not support mid-traversal checkpointing")
 
 
 def pack_blocks(improved, vals, grid: Grid2D, fill_val=I32_MAX, ops=None):
@@ -393,3 +417,115 @@ def push_scan(engine, graph, *, relax, edge_vals=None):
         return cand
 
     return scan
+
+
+# ----------------------------------------------------------------------------
+# Checkpoint-schema helpers (DESIGN.md sec. 15)
+#
+# Export reads the stacked (R, C, ...) state into GLOBAL vertex-id order;
+# import rebuilds a grid's stacked layout from the global arrays.  Both
+# live on the partition identities of DESIGN.md sec. 2: processor (i, j)'s
+# owned block b = j*R + i covers global ids [(j*R + i)*S, (j*R + i + 1)*S),
+# its local rows run over blocks m*R + i for m in 0..C-1, and owned local
+# row j*S + t converts to local col i*S + t (ROW2COL).
+# ----------------------------------------------------------------------------
+
+def rows_to_global(grid: Grid2D, i: int) -> np.ndarray:
+    """Global vertex ids of grid row i's local rows, in local-row order
+    (identical for every processor in grid row i -- the j-independence
+    that lets import fill ALL local rows from one gather)."""
+    R, C, S = grid.R, grid.C, grid.S
+    return ((np.arange(C)[:, None] * R + i) * S
+            + np.arange(S)[None, :]).reshape(-1)
+
+
+def owned_from_global(g, grid: Grid2D):
+    """(n,) global-order tensor -> its (R, C, S) owned blocks, a view (the
+    inverse of `global_order`)."""
+    return g.view(grid.C, grid.R, grid.S).transpose(0, 1)
+
+
+def rows_from_global(g, grid: Grid2D):
+    """(n,) global-order tensor -> (R, C, n_rows_local): every local row of
+    processor (i, j) holds the value of its vertex, `rows_to_global(grid,
+    i)` as one view (block m of grid row i is global block m*R + i)."""
+    R, C, S = grid.R, grid.C, grid.S
+    rows = g.view(C, R, S).transpose(0, 1).reshape(R, C * S)
+    return rows.unsqueeze(1).expand(R, C, C * S).contiguous()
+
+
+def front_mask(front, front_cnt, grid: Grid2D):
+    """(R, C, S) frontier col ids (valid first `front_cnt`) -> (R, C, S)
+    bool over the owned block's rows (col i*S + t is owned row t)."""
+    R, C, S = grid.R, grid.C, grid.S
+    dev = front.device
+    valid = torch.arange(S, device=dev) < front_cnt[..., None]
+    i_s = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1) * S
+    # pads mark the spare slot S, dropped below
+    t = torch.where(valid, front - i_s, S).long()
+    m = torch.zeros((R, C, S + 1), dtype=torch.bool, device=dev)
+    m.scatter_(2, t, True)
+    return m[:, :, :S]
+
+
+def host(x, n: int) -> np.ndarray:
+    """A global-order tensor's first n entries as a host numpy array."""
+    return x[:n].cpu().numpy()
+
+
+def padded_global(a, grid: Grid2D, fill, device, dtype=torch.int32):
+    """A raw (n_raw,) snapshot array -> (grid.n,) tensor on device, the new
+    grid's padding vertices set to `fill` (a scalar, or "gid": their own
+    global ids)."""
+    a = torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                     dtype=dtype)
+    n_raw = a.shape[0]
+    if fill == "gid":
+        tail = torch.arange(n_raw, grid.n, dtype=dtype, device=device)
+    else:
+        tail = torch.full((grid.n - n_raw,), fill, dtype=dtype,
+                          device=device)
+    return torch.cat([a, tail])
+
+
+def export_value_state(grid: Grid2D, st: ValueState, n: int) -> dict:
+    """Stacked ValueState -> global snapshot (JAX's `export_value_state`).
+
+    `val` exports the RAW owned blocks (I32_MAX = top; programs whose
+    finalize remaps sentinels do so only at output time), `in_front` is the
+    explicit frontier mask (value frontiers are not derivable from `val`
+    alone), and the frontier payloads are NOT stored -- they equal the owned
+    value at the frontier rows, which import re-reads.
+    """
+    val = global_order(owned_rows(st.val, grid))
+    in_front = global_order(front_mask(st.front, st.front_cnt, grid))
+    return {"val": host(val, n), "in_front": host(in_front, n),
+            "it": np.asarray(st.it, np.int64),
+            "levels_done": np.asarray(st.it - 1, np.int64)}
+
+
+def import_value_state(grid: Grid2D, snap: dict, device, pad: str = "max",
+                       ops=None) -> ValueState:
+    """Global snapshot -> stacked ValueState on `grid` (JAX's
+    `import_value_state`).
+
+    Every local row takes the authoritative global value: the owned block
+    exactly, and remote rows get a send-suppression cache that is a SUPERSET
+    of any organically-grown one -- suppressed proposals would have carried
+    cand >= the owner's current value, invisible to the min-merge and the
+    strict `changed` mask, so resumed trajectories stay bit-identical.
+
+    pad: value for the new grid's padding vertices (>= the raw n): "max"
+    (I32_MAX -- never-visited sentinel, SSSP) or "gid" (own global id --
+    CC's converged self-label, what an uninterrupted run holds there after
+    level 1).  ops: the fold-kernel bundle for the frontier's compaction.
+    """
+    gv = padded_global(snap["val"], grid, I32_MAX if pad == "max" else pad,
+                       device)
+    inf = padded_global(snap["in_front"], grid, False, device,
+                        dtype=torch.bool)
+    front, payload, cnt = owned_to_front(owned_from_global(inf, grid),
+                                         owned_from_global(gv, grid), grid,
+                                         ops=ops)
+    return ValueState(val=rows_from_global(gv, grid), front=front,
+                      payload=payload, front_cnt=cnt, it=int(snap["it"]))

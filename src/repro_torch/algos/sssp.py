@@ -78,6 +78,18 @@ class SSSPProgram(FrontierProgram):
     def keep_going(self, engine, st, total: int) -> bool:
         return total > 0 and st.it <= engine.max_levels
 
+    def level_count(self, st) -> int:
+        return st.it
+
+    def export_state(self, engine, st, n: int) -> dict:
+        # RAW distances (I32_MAX = unreached); finalize's -1 remap happens
+        # only at output time, never in the carry
+        return PR.export_value_state(engine.grid, st, n)
+
+    def import_state(self, engine, snap: dict) -> ValueState:
+        return PR.import_value_state(engine.grid, snap, engine.device,
+                                     pad="max", ops=engine.fold_ops)
+
     def finalize(self, engine, st):
         d = PR.global_order(PR.owned_rows(st.val, engine.grid))
         return torch.where(d == PR.I32_MAX, -1, d), st.it

@@ -1,9 +1,7 @@
 """BFSConfig: the one config object of the session API (DESIGN.md sec. 7),
 the port of `repro/api/config.py`.
 
-Same fields and defaults as the JAX config.  A knob whose path is not
-ported yet (`fault_tolerance`) raises a ValueError at construction, naming
-the ROADMAP item that brings it.  `expand` / `fold` take the port's
+Same fields and defaults as the JAX config.  `expand` / `fold` take the port's
 spellings: "auto" (the CUDA kernel on a card, the plain torch formulas on
 the CPU), "kernel" or "reference" (`repro_torch.kernels.select`).
 """
@@ -55,7 +53,17 @@ class BFSConfig:
                  wire bytes and messages, direction) as `output.trace` and
                  `GraphSession.last_trace()`.  Part of every engine key;
                  outputs are identical either way.
-    fault_tolerance, ckpt_every: ROADMAP A11.
+    fault_tolerance:  mid-traversal recovery (DESIGN.md sec. 15).  When
+                 True, sessions run the level loop in checkpoint-bounded
+                 segments (`ckpt_every` levels per segment) so a traversal
+                 can snapshot its carry between segments, survive injected
+                 device loss, and resume -- same grid or shrunken -- through
+                 a `repro_torch.runtime.RecoveryPlan` (`recovery=` of every
+                 query).  Cache-keyed like `telemetry`: the off path is
+                 exactly the unsegmented loop, and segmented outputs are
+                 bit-identical to it.
+    ckpt_every:  levels per resumable segment when fault_tolerance=True
+                 (the K of "checkpoint every K levels"), >= 1.
     row_axes / col_axes name mesh axes, which the stacked grid does not
     use, except that the butterfly routes over one column axis (as in
     JAX).
@@ -85,10 +93,9 @@ class BFSConfig:
             if v is not None and not isinstance(v, tuple):
                 object.__setattr__(self, f, tuple(v))
         self.direction_mode             # raises on a bad spelling
-        if self.fault_tolerance:
-            raise ValueError(
-                f"BFSConfig(fault_tolerance={self.fault_tolerance!r}) is "
-                f"not ported to repro_torch yet (ROADMAP A11)")
+        if int(self.ckpt_every) < 1:
+            raise ValueError(f"ckpt_every must be >= 1, got "
+                             f"{self.ckpt_every}")
         for knob in ("expand", "fold", "bottomup"):
             check_path(getattr(self, knob), knob=knob)
         if self.dedup not in ("scatter", "sort"):
@@ -139,7 +146,8 @@ class BFSConfig:
         return (self.fold_codec, self.direction_mode, self.edge_chunk,
                 self.dedup, self.max_levels, self.alpha, self.beta,
                 self.expand_fn, self.expand, self.fold, self.bottomup,
-                self.exchange_name, self.telemetry)
+                self.exchange_name, self.telemetry, self.fault_tolerance,
+                self.ckpt_every)
 
     def algo_engine_key(self, program_key: tuple, codec_name: str,
                         max_levels: int) -> tuple:
@@ -149,7 +157,8 @@ class BFSConfig:
         the codec and `max_levels` are per call."""
         return ("algo", program_key, codec_name, self.edge_chunk, self.dedup,
                 max_levels, self.expand_fn, self.expand, self.fold,
-                self.bottomup, self.exchange_name, self.telemetry)
+                self.bottomup, self.exchange_name, self.telemetry,
+                self.fault_tolerance, self.ckpt_every)
 
     def resolve_grid(self, n: int) -> Grid2D:
         """Concretise the `grid` spelling against n vertices (padding up)."""

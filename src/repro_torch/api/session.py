@@ -12,11 +12,17 @@ the roots run one by one.  `connected_components()`, `sssp(roots)` (over
 the weights planned with `from_edges(..., weights=)`) and
 `multi_bfs(sources, k)` run the value programs through the same engine.
 With `BFSConfig(telemetry=True)` every query also returns its per-level
-`LevelTrace` (`output.trace`, `GraphSession.last_trace()`).  PyTorch runs
+`LevelTrace` (`output.trace`, `GraphSession.last_trace()`).  With
+`BFSConfig(fault_tolerance=True, ckpt_every=K)` every query runs the
+segmented level loop under `repro_torch.runtime.run_segmented` and takes
+`recovery=RecoveryPlan(...)` (checkpointer, loss injector, retry policy,
+a snapshot to resume from); outputs are bit-identical.  PyTorch runs
 eagerly, so there is no compiled executable cache; capturing
 the level loop in CUDA graphs is later work.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -189,7 +195,9 @@ class DistGraph:
                 max_levels=config.max_levels, expand=config.expand,
                 expand_fn=config.expand_fn, fold=config.fold,
                 dedup=config.dedup, bottomup=config.bottomup,
-                exchange=config.exchange, telemetry=config.telemetry)
+                exchange=config.exchange, telemetry=config.telemetry,
+                fault_tolerance=config.fault_tolerance,
+                ckpt_every=config.ckpt_every)
             self._engines[key] = eng
         return eng
 
@@ -248,7 +256,36 @@ class GraphSession:
             self._last_trace = out.trace
         return out
 
-    def bfs(self, roots, validate=False) -> BFSOutput:
+    def _run_recoverable(self, eng, arg, *extra, B=None, recovery=None):
+        """Fault-tolerant query path: the segmented engine loop under the
+        recovery driver (DESIGN.md sec. 15) instead of one whole search.
+        Bit-identical outputs; `recovery` is the RecoveryPlan carrying
+        checkpointer / injector / retry policy."""
+        from repro_torch.runtime.recovery import run_segmented
+        return run_segmented(eng, self.graph.csc, arg, *extra, B=B,
+                             n=self.graph.n, plan=recovery)
+
+    def _check_recovery(self, recovery) -> bool:
+        if recovery is not None and not self.config.fault_tolerance:
+            raise ValueError(
+                "recovery= needs a fault-tolerant session; open it with "
+                "BFSConfig(fault_tolerance=True)")
+        return self.config.fault_tolerance
+
+    def _run_roots(self, eng, roots_np, extra, recovery):
+        """A scalar-or-batch rooted query (BFS, SSSP).  Under fault
+        tolerance a scalar root runs as a batch of one, as in the JAX
+        package, so its snapshots carry JAX's batched schema."""
+        if self._check_recovery(recovery):
+            batch = np.atleast_1d(roots_np).tolist()
+            out = self._run_recoverable(eng, batch, *extra, B=len(batch),
+                                        recovery=recovery)
+            return _first(out) if roots_np.ndim == 0 else out
+        if roots_np.ndim == 0:
+            return eng.run(self.graph.csc, int(roots_np), extra)
+        return eng.run_batch(self.graph.csc, roots_np.tolist(), extra)
+
+    def bfs(self, roots, validate=False, recovery=None) -> BFSOutput:
         """Search from a scalar root or a (B,) batch of roots.
 
         Scalar: global (n,) level/pred (plain global vertex ids, padded to
@@ -264,18 +301,22 @@ class GraphSession:
         AssertionError on any violation: True against the graph's own
         edge list and its cached `EdgeIndex`, an array against that array,
         moved to the graph's device, with an `EdgeIndex` of its own that
-        is not cached."""
+        is not cached.
+
+        recovery: optional `repro_torch.runtime.RecoveryPlan` (checkpointer
+        / loss injector / retry policy / snapshot to resume) for a
+        fault_tolerance=True session; the query then runs the segmented
+        level loop and can resume.  An FT session runs that loop with or
+        without it."""
         check_vertex_ids(roots, self.graph.n, "roots")
         roots_np = _host_ids(roots)
         if roots_np.ndim > 1:
             raise ValueError(f"roots must be a scalar or 1D batch, got "
                              f"shape {roots_np.shape}")
+        out = self._run_roots(self.engine, roots_np, self.extra, recovery)
         if roots_np.ndim == 0:
-            out = self.engine.run(self.graph.csc, int(roots_np), self.extra)
             levels, preds = [out.level], [out.pred]
         else:
-            out = self.engine.run_batch(self.graph.csc, roots_np.tolist(),
-                                        self.extra)
             levels, preds = list(out.level), list(out.pred)
         if validate is not False and validate is not None:
             n = self.graph.n
@@ -313,7 +354,9 @@ class GraphSession:
                 edge_chunk=cfg.edge_chunk, max_levels=max_levels,
                 expand=cfg.expand, expand_fn=cfg.expand_fn, fold=cfg.fold,
                 dedup=cfg.dedup, bottomup=cfg.bottomup,
-                exchange=cfg.exchange, telemetry=cfg.telemetry)
+                exchange=cfg.exchange, telemetry=cfg.telemetry,
+                fault_tolerance=cfg.fault_tolerance,
+                ckpt_every=cfg.ckpt_every)
             self.graph._engines[key] = eng
         return eng
 
@@ -332,25 +375,29 @@ class GraphSession:
                 "config, weights=w) so ensure_csr can lay it out")
         return (csr["row_off"], csr["col_idx"], self.graph.csr_weights)
 
-    def connected_components(self, fold_codec=None) -> CCOutput:
+    def connected_components(self, fold_codec=None,
+                             recovery=None) -> CCOutput:
         """Labels of every vertex's connected component (min member id).
 
         Assumes the planned edge list is symmetrised; on a directed list
         the label is the smallest vertex id with a directed path to each
         vertex.  fold_codec: None = the program's hint ("bitmap"); every
-        codec gives the same labels."""
+        codec gives the same labels.  recovery: see `bfs`."""
         max_levels = self.graph.grid.n + 1     # diameter bound
         eng = self._algo_engine(ConnectedComponentsProgram(), fold_codec,
                                 max_levels)
-        return self._traced(eng.run(self.graph.csc, None,
-                                    self._algo_csr_extra()))
+        extra = self._algo_csr_extra()
+        if self._check_recovery(recovery):
+            return self._traced(self._run_recoverable(
+                eng, None, *extra, recovery=recovery))
+        return self._traced(eng.run(self.graph.csc, None, extra))
 
-    def sssp(self, roots, fold_codec=None) -> SSSPOutput:
+    def sssp(self, roots, fold_codec=None, recovery=None) -> SSSPOutput:
         """Shortest distances over the planned per-edge uint8 weights.
 
         Scalar root -> (n,) int32 distances (-1 unreachable); a (B,) batch
         -> (B, n), equal to the roots run one by one.  Requires
-        `DistGraph.from_edges(..., weights=)`."""
+        `DistGraph.from_edges(..., weights=)`.  recovery: see `bfs`."""
         if self.graph.weights is None:
             raise ValueError(
                 "sssp needs resident per-edge weights; plan the graph with "
@@ -363,21 +410,17 @@ class GraphSession:
         max_levels = self.graph.grid.n + 1     # Bellman-Ford round bound
         eng = self._algo_engine(SSSPProgram(), fold_codec, max_levels)
         extra = (self.graph.weights,) + self._algo_csr_extra(weights=True)
-        if roots_np.ndim == 0:
-            return self._traced(eng.run(self.graph.csc, int(roots_np),
-                                        extra))
-        return self._traced(eng.run_batch(self.graph.csc, roots_np.tolist(),
-                                          extra))
+        return self._traced(self._run_roots(eng, roots_np, extra, recovery))
 
     def multi_bfs(self, sources, k: int | None = None,
-                  fold_codec=None) -> MultiBFSOutput:
+                  fold_codec=None, recovery=None) -> MultiBFSOutput:
         """Simultaneous BFS from a (K,) source set (ONE shared frontier).
 
         Returns per-vertex hops to the nearest source and the claiming
         source's index (same-wave ties -> minimum index).  k bounds the
         sweep to k hops: `level >= 0` is then the union k-hop neighbourhood
         of the sources.  Contrast `bfs(roots)`, which runs K independent
-        searches."""
+        searches.  recovery: see `bfs`."""
         check_vertex_ids(sources, self.graph.n, "sources")
         sources_np = _host_ids(sources)
         if sources_np.ndim != 1 or sources_np.shape[0] == 0:
@@ -386,5 +429,16 @@ class GraphSession:
         max_levels = int(k) if k is not None else self.config.max_levels
         eng = self._algo_engine(MultiSourceBFSProgram(), fold_codec,
                                 max_levels)
-        return self._traced(eng.run(self.graph.csc, sources_np,
-                                    self._algo_csr_extra()))
+        extra = self._algo_csr_extra()
+        if self._check_recovery(recovery):
+            return self._traced(self._run_recoverable(
+                eng, sources_np, *extra, recovery=recovery))
+        return self._traced(eng.run(self.graph.csc, sources_np, extra))
+
+
+def _first(out):
+    """A batch-of-one output as the scalar query's: every batched field's
+    first entry (None stays None)."""
+    return dataclasses.replace(out, **{
+        f.name: None if getattr(out, f.name) is None
+        else getattr(out, f.name)[0] for f in dataclasses.fields(out)})

@@ -26,9 +26,31 @@ With --exchange EX every session runs `BFSConfig(exchange=EX)` ("flat",
 field by field, under "{prefix}_trace{b}_{field}" (b = 0 for a scalar
 search, the batch row otherwise).
 
+With --ft DIR (mid-traversal fault tolerance; EDGES.npz holds `weights`)
+it reads DIR/cases.json, written by tests/test_torch_recovery.py, and per
+grid runs, with `edge_chunk` 512:
+  * "configs" [[direction, codec], ...]: every query of QUERIES
+    unsegmented, under "ft_{RxC}_{dtag}_{codec}_{query}_*";
+  * "snapshots" [{tag, query, direction, codec, at, telemetry}, ...]: the
+    query in a fault-tolerant session (ckpt_every=1) under a persistent
+    loss crossing level `at`; the UnrecoverableLoss snapshot is written to
+    DIR/jax_{RxC}_{tag} through a `TraversalCheckpointer` (query_key = the
+    tag); then the port's snapshot of the same case, read from
+    DIR/torch_{RxC}_{tag}, is resumed in a fresh session, under
+    "ftx_{RxC}_{tag}_*";
+  * "elastic" [{tag, query, kind}, ...]: `ElasticCoordinator` from this
+    grid with a persistent ("persistent") or twice-persistent
+    ("repeated") loss crossing level 2, under "el_{RxC}_{tag}_*", its
+    grid trajectory under "el_{RxC}_{tag}_grids" and its RecoveryPlan
+    stats (resumes, segments, retries, resumed_from_level) under
+    "el_{RxC}_{tag}_stats".
+With --drills (EDGES.npz holds `weights`) it runs the standard fault-drill
+matrix without `serve-drain` on the first grid (`repro.scenarios.
+run_matrix`, edge_chunk 512) and writes the rows as JSON under "drills".
+
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
-[--algos] [--exchange EX] [--telemetry] (GRID = RxC).  EDGES.npz holds
-`edges` (2, E), `roots` (B,) and `n`.
+[--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills] (GRID =
+RxC).  EDGES.npz holds `edges` (2, E), `roots` (B,) and `n`.
 """
 import dataclasses
 import os
@@ -37,8 +59,11 @@ import sys
 OPTS = sys.argv[3:]
 EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
     else "flat"
-FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE)
+FT_DIR = OPTS[OPTS.index("--ft") + 1] if "--ft" in OPTS else None
+FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE,
+         "--ft", FT_DIR, "--drills")
 ARGS = [a for a in OPTS if a not in FLAGS]
+DRILLS = "--drills" in OPTS
 DIRECTION = "--direction" in OPTS
 ALGOS = "--algos" in OPTS
 TELEMETRY = "--telemetry" in OPTS
@@ -96,10 +121,101 @@ def put_algos(out, graph, grid, roots):
             put(out, f"{tag}_bfs", sess.bfs(roots))
 
 
-data = np.load(sys.argv[1])
-edges, roots, n = data["edges"], data["roots"], int(data["n"])
-out = {}
-for R, C in GRIDS:
+QUERY_FIELDS = {"bfs1": ("level", "pred", "n_levels"),
+                "bfs": ("level", "pred", "n_levels"),
+                "cc": ("labels", "n_iters"), "sssp": ("dist", "n_iters"),
+                "mbfs": ("level", "src", "n_levels")}
+METHODS = {"bfs1": "bfs", "bfs": "bfs", "cc": "connected_components",
+           "sssp": "sssp", "mbfs": "multi_bfs"}
+
+
+def query_arg(query, roots):
+    """The positional argument of a QUERY_FIELDS query (None: none)."""
+    return {"bfs1": int(roots[0]), "bfs": roots[:2], "cc": None,
+            "sssp": roots[:2], "mbfs": roots}[query]
+
+
+def run_query(sess, query, roots, **kw):
+    arg = query_arg(query, roots)
+    return getattr(sess, METHODS[query])(
+        *(() if arg is None else (arg,)), **kw)
+
+
+def put_ft(out, graph, grid, roots, weights):
+    """The --ft outputs of one grid (see the module docstring)."""
+    import json
+
+    from repro.runtime import (DeviceLossInjector, ElasticCoordinator,
+                               RecoveryPlan, RetryPolicy,
+                               TraversalCheckpointer, UnrecoverableLoss)
+
+    R, C = grid
+    gtag = f"{R}x{C}"
+    with open(os.path.join(FT_DIR, "cases.json")) as f:
+        cases = json.load(f)
+    base = dict(grid=grid, edge_chunk=512, **KNOBS)
+    for direction, codec in cases["configs"]:
+        sess = graph.session(BFSConfig(direction=direction,
+                                       fold_codec=codec, **base))
+        for query, fields in QUERY_FIELDS.items():
+            put(out, f"ft_{gtag}_{direction_tag(direction)}_{codec}_{query}",
+                run_query(sess, query, roots), fields)
+    for case in cases["snapshots"]:
+        cfg = BFSConfig(direction=case["direction"], fold_codec=case["codec"],
+                        fault_tolerance=True, ckpt_every=1,
+                        **dict(base, telemetry=case["telemetry"]))
+        tag, query = case["tag"], case["query"]
+        plan = RecoveryPlan(injector=DeviceLossInjector(case["at"], fires=1),
+                            policy=RetryPolicy(max_retries=0))
+        try:
+            run_query(graph.session(cfg), query, roots, recovery=plan)
+            raise AssertionError(f"{tag}: the loss did not fire")
+        except UnrecoverableLoss as e:
+            ck = TraversalCheckpointer(os.path.join(FT_DIR,
+                                                    f"jax_{gtag}_{tag}"),
+                                       tag)
+            ck.save(e.snapshot)
+            ck.join()
+        snap = TraversalCheckpointer(
+            os.path.join(FT_DIR, f"torch_{gtag}_{tag}"), tag).load()
+        res = run_query(graph.session(cfg), query, roots,
+                        recovery=RecoveryPlan(resume=snap))
+        put(out, f"ftx_{gtag}_{tag}", res, QUERY_FIELDS[query])
+    for case in cases["elastic"]:
+        tag, query = case["tag"], case["query"]
+        policy = RetryPolicy(max_retries=2, backoff_s=1e-4, jitter_s=1e-4,
+                             seed=1)
+        losses = 2 if case["kind"] == "repeated" else 1
+        plan = RecoveryPlan(injector=DeviceLossInjector(
+            2, fires=(policy.max_retries + 1) * losses), policy=policy)
+        cfg = BFSConfig(fault_tolerance=True, ckpt_every=1, **base)
+        coord = ElasticCoordinator(edges, cfg, weights=weights, n=n,
+                                   max_shrinks=losses + 1)
+        arg = query_arg(query, roots)
+        res = coord.run(METHODS[query], arg, plan=plan)
+        put(out, f"el_{gtag}_{tag}", res, QUERY_FIELDS[query])
+        out[f"el_{gtag}_{tag}_grids"] = np.asarray(coord.grids, np.int64)
+        out[f"el_{gtag}_{tag}_stats"] = np.asarray(
+            [plan.stats["resumes"], plan.stats["segments"],
+             plan.stats["retries"], plan.stats["resumed_from_level"]],
+            np.int64)
+
+
+def put_drills(out, grid, weights):
+    """The drill matrix without serve-drain, its rows as one JSON string."""
+    import json
+
+    from repro.scenarios import run_matrix, standard_matrix
+
+    rows = [r.to_row() for r in run_matrix(
+        edges, BFSConfig(grid=grid, edge_chunk=512), weights=weights, n=n,
+        scenarios=[s for s in standard_matrix() if s.runner != "serve"])]
+    out["drills"] = np.asarray(json.dumps(rows))
+
+
+def put_grid(out, grid):
+    """The parity outputs of one grid (the modes before --ft)."""
+    R, C = grid
     mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])
     graph = DistGraph.from_edges(
         edges, BFSConfig(grid=(R, C)), mesh=mesh, n=n,
@@ -116,5 +232,22 @@ for R, C in GRIDS:
                 sess.bfs(roots))
     if ALGOS:
         put_algos(out, graph, (R, C), roots)
+
+
+data = np.load(sys.argv[1])
+edges, roots, n = data["edges"], data["roots"], int(data["n"])
+out = {}
+if DRILLS:
+    put_drills(out, GRIDS[0], data["weights"])
+elif FT_DIR is not None:
+    for R, C in GRIDS:
+        mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])
+        put_ft(out, DistGraph.from_edges(edges, BFSConfig(grid=(R, C)),
+                                         mesh=mesh, n=n,
+                                         weights=data["weights"]),
+               (R, C), roots, data["weights"])
+else:
+    for grid in GRIDS:
+        put_grid(out, grid)
 np.savez(sys.argv[2], **out)
 print("OK")

@@ -1,7 +1,7 @@
 """The port's session surface: entry points refuse to run without a card
-unless told device="cpu"; every knob the port does not support yet raises,
-naming its ROADMAP item; the exchange and telemetry knobs are accepted and
-resolve as JAX's config does; the direction knobs are accepted and key the
+unless told device="cpu"; the fault-tolerance knobs are accepted,
+validated and key both engine caches; the exchange and telemetry knobs are
+accepted and resolve as JAX's config does; the direction knobs are accepted and key the
 engine cache; `check_vertex_ids` speaks as the JAX one does; the
 torch R-MAT generator is deterministic per seed, in range and symmetric."""
 import numpy as np
@@ -28,12 +28,31 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
     assert out.edges_scanned == 4 and int(out.n_levels) == 4
 
 
-@pytest.mark.parametrize("knob,value,item", [
-    ("fault_tolerance", True, "A11"),
-])
-def test_unsupported_knobs_name_their_roadmap_item(knob, value, item):
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        BFSConfig(**{knob: value})
+@pytest.mark.parametrize("K", [1, 2, 5])
+def test_fault_tolerance_knobs_are_accepted(K):
+    """`BFSConfig(fault_tolerance=True, ckpt_every=K)` is accepted with
+    JAX's values, and both flags key both engine caches (JAX
+    `config.py:209, 224`)."""
+    from repro.api import BFSConfig as JaxBFSConfig
+
+    ours = BFSConfig(fault_tolerance=True, ckpt_every=K)
+    theirs = JaxBFSConfig(fault_tolerance=True, ckpt_every=K)
+    assert (ours.fault_tolerance, ours.ckpt_every) == \
+        (theirs.fault_tolerance, theirs.ckpt_every) == (True, K)
+    keys = {cfg.engine_key for cfg in (
+        BFSConfig(), BFSConfig(ckpt_every=K + 1), ours,
+        BFSConfig(fault_tolerance=True, ckpt_every=K + 1))}
+    assert len(keys) == 4
+    algo = {cfg.algo_engine_key(("cc",), "bitmap", 9) for cfg in (
+        BFSConfig(), BFSConfig(ckpt_every=K + 1), ours,
+        BFSConfig(fault_tolerance=True, ckpt_every=K + 1))}
+    assert len(algo) == 4
+
+
+@pytest.mark.parametrize("K", [0, -1])
+def test_ckpt_every_below_one_raises(K):
+    with pytest.raises(ValueError, match="ckpt_every must be >= 1"):
+        BFSConfig(fault_tolerance=True, ckpt_every=K)
 
 
 @pytest.mark.parametrize("knob,value", [
