@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two session paths, its kernel-stage surface and
-its fault-tolerant level loop once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's two session paths, its kernel-stage surface,
+its fault-tolerant level loop and its serving layer once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py [--scale 26] [--roots 64] [--td-roots 16]
                           [--batch 8] [--dir-batch 4] [--sssp-roots 4]
@@ -184,11 +185,33 @@ Phases, one line or more each on stdout:
                peak; every plan's retries equal to its injector's fires
                less the losses that escalated, and
                time_to_first_resumed_level_s printed;
+  16. serve    after 15 (d), before 15 (e) drops the graph: the serving
+               layer on the resident SCALE 26 graph -- a `GraphServer`
+               (max_batch 4, window 10 ms) warmed for bfs / sssp / cc
+               (every class's `compiled_for`, `cache_stats()`); a burst
+               from four tenant threads, all admitted before the server
+               starts: 11 top-down BFS roots of phase 4 (classes 4, 4, 4,
+               3 live in the last), 4 direction-optimised (bitmap) roots of
+               phase 7, 2 SSSP roots and the k=2 multi-BFS of phase 9, two
+               CC callers sharing one run; every result ok and equal to
+               phases 4, 7, 9 field for field; per program the p50 / p99
+               of queued_s and exec_s, queries/s over the burst's wall
+               time, occupancy, pad slots and their seconds, each top-down
+               batch's exec_s against phase 4's times of its slots; B1-B4,
+               B7 and B8 launched (> 0); then serve-drain: 2 roots in one
+               fault-tolerant batch (ckpt_every=2, checkpoints under
+               build/) lose a device at level 3 with max_retries=0 and
+               drain through recovery: 0 lost, one resume, equal to phase
+               4; `release_edges()` and the phase's peak.  Phase 7 prints
+               the memory around `ensure_csr` (which drops the graph's
+               edge list, weights and EdgeIndex), and after 15 (e) the
+               memory freed when the script drops its own;
   14b. exch-8x8 after 11, on its 8x8 graph: exchange="auto" resolves to
                the butterfly (3 stages); BFS both ways, CC and multi-BFS
                under list and delta equal flat, their traces reading 3
                messages a processor a level (multi-BFS 0, as in JAX);
-  6. report    the {"kernels": [...]} line, the nvidia-smi line, and last
+  6. report    every phase's peak memory, the {"kernels": [...]} line,
+               the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
 Every phase prints its seconds.  Kernel times are CUDA events around ten
@@ -408,6 +431,15 @@ def block_spans(torch, start, E, cumul, total) -> dict:
     return {"blocks": span.numel(), "mean": float(span.float().mean()),
             "max": int(span.max()), "search_blocks": int(search.sum()),
             "walked_slots": int(span[~search].sum())}
+
+
+def peaks(report: dict, prefix: str = ""):
+    """(path, bytes) of every peak the phases recorded in the report."""
+    for k, v in report.items():
+        if isinstance(v, dict):
+            yield from peaks(v, f"{prefix}{k}.")
+        elif k.endswith("peak_bytes"):
+            yield f"{prefix}{k}", v
 
 
 class Phases:
@@ -805,7 +837,9 @@ def run_values(torch, args, graph, edges, weights, td_roots, scalar,
     vals = {"cc": (cc.labels.cpu(), int(cc.n_iters), cc.edges_scanned),
             "sssp_roots": sssp_roots[:2], "sssp": sssp_out[:2],
             "mbfs": (mb.level.cpu(), mb.src.cpu(), int(mb.n_levels),
-                     mb.edges_scanned), "sources": td_roots}
+                     mb.edges_scanned), "sources": td_roots,
+            "khop": (hop.level.cpu(), hop.src.cpu(), int(hop.n_levels),
+                     hop.edges_scanned)}
     report["values"] = {
         "cc_s": cc_s, "cc_iters": int(cc.n_iters),
         "cc_edges": cc.edges_scanned, "cc_launches": cc_launches,
@@ -1508,6 +1542,311 @@ def run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
     phases.end("15 ft-elastic")
 
 
+SERVE_TD_ROOTS = 11              # phase 16: top-down BFS requests
+SERVE_DIR_ROOTS = 4              # phase 16: direction-optimised requests
+
+
+def percentiles(xs) -> str:
+    xs = sorted(xs)
+
+    def pct(q):
+        return xs[min(len(xs) - 1, int(q / 100 * len(xs)))]
+    return f"p50 {pct(50):.4f} s p99 {pct(99):.4f} s"
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def run_serve(torch, args, graph, td_roots, dir_roots, scalar, dscalar,
+              td_s, dir_s, dir_config, vals, report, phases):
+    """Phase 16: the serving layer on the resident SCALE 26 graph -- a
+    GraphServer warmed through `compiled_for`, a burst from four tenant
+    threads (top-down and direction-optimised BFS, SSSP, two CC callers, a
+    k-hop multi-BFS), every result held to phases 4, 7 and 9 field for
+    field; the burst's latency, throughput, occupancy and padding; then a
+    fault-tolerant batch that loses a device mid-search and drains through
+    recovery from a checkpoint directory."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from repro_torch.api import BFSConfig
+    from repro_torch.runtime import DeviceLossInjector, RetryPolicy
+    from repro_torch.serve import GraphServer, ServeConfig, pad_classes
+
+    R, C = graph.grid.R, graph.grid.C
+    name = f"g{args.scale}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rep = {}
+
+    # -- (a) the server, warmed ---------------------------------------------
+    srv = GraphServer({name: graph}, ServeConfig(max_batch=4,
+                                                  window_s=0.01))
+    stats0 = graph.cache_stats()
+    _, warm_s = timed(torch, lambda: srv.warm(("bfs", "sssp", "cc")))
+    warm_stats = graph.cache_stats()
+    sess = srv._worker(name).session_for(graph.config)
+    entries = {B: repr(sess.compiled_for(B)) for B in pad_classes(4)}
+    log(f"[16 serve] warm(bfs, sssp, cc) in {warm_s:.2f} s: compiled_for "
+        f"{entries}; cache_stats before {stats0}, after warm {warm_stats}, "
+        f"after the lookups {graph.cache_stats()}")
+    rep["warm_s"] = warm_s
+
+    # -- (b) the burst --------------------------------------------------------
+    sources = vals["sources"]
+    # as many as phases 4 and 7 kept (fewer on a quick check)
+    n_td = min(SERVE_TD_ROOTS, len(scalar))
+    n_dir = min(SERVE_DIR_ROOTS, len(dscalar))
+    requests = ([("td", r, k) for k, r in enumerate(td_roots[:n_td])]
+                + [("dir", r, k) for k, r in enumerate(dir_roots[:n_dir])]
+                + [("sssp", r, k) for k, r in
+                   enumerate(vals["sssp_roots"][:2])]
+                + [("cc", None, 0), ("cc", None, 1), ("mbfs", None, 0)])
+    tenants = [requests[t::4] for t in range(4)]
+    barrier = threading.Barrier(5)
+    failures, done = [], []
+
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def want_of(kind, k):
+        if kind == "td":
+            lv, pr, nl, es = scalar[k]
+            return {"level": lv, "pred": pr, "n_levels": nl,
+                    "edges_scanned": es, "directions": None}
+        if kind == "dir":
+            lv, pr, nl, es, dr = dscalar[k]
+            return {"level": lv, "pred": pr, "n_levels": nl,
+                    "edges_scanned": es, "directions": dr}
+        if kind == "sssp":
+            dist, it, es = vals["sssp"][k]
+            return {"dist": dist, "n_iters": it, "edges_scanned": es}
+        if kind == "cc":
+            labels, it, es = vals["cc"]
+            return {"labels": labels, "n_iters": it, "edges_scanned": es}
+        level, src, nl, es = vals["khop"]
+        return {"level": level, "src": src, "n_levels": nl,
+                "edges_scanned": es}
+
+    def tenant(t, mine):
+        tickets = []
+        try:
+            for kind, r, k in mine:
+                kw = {"tenant": f"tenant{t}"}
+                if kind == "td":
+                    tk = srv.bfs(name, r, **kw)
+                elif kind == "dir":
+                    tk = srv.bfs(name, r, config=dir_config, **kw)
+                elif kind == "sssp":
+                    tk = srv.sssp(name, r, **kw)
+                elif kind == "cc":
+                    tk = srv.connected_components(name, **kw)
+                else:
+                    tk = srv.multi_bfs(name, np.asarray(sources), k=2,
+                                       **kw)
+                tickets.append((kind, r, k, tk))
+        except Exception as exc:       # noqa: BLE001 -- raised below
+            failures.append(f"admission: {type(exc).__name__}: {exc}")
+        finally:
+            barrier.wait()
+        # the results stay on the card until the burst is over: a client's
+        # copy of a 512 MiB result to pageable host memory, made while the
+        # next batch runs, slows that batch's launches
+        for kind, r, k, tk in tickets:
+            try:
+                res = tk.result(timeout=600)
+                if not res.ok:
+                    raise AssertionError(f"{kind} {r}: not ok: {res.error}")
+                done.append((kind, r, k, res))
+            except Exception as exc:   # noqa: BLE001 -- raised below
+                failures.append(f"{type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=tenant, args=(t, mine))
+               for t, mine in enumerate(tenants)]
+    for th in threads:
+        th.start()
+    barrier.wait()                       # every request admitted
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.start()
+    for th in threads:
+        th.join()
+    srv.drain()
+    burst_s = time.perf_counter() - t0
+    launches = read_counts()
+    srv.stop()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    if len(done) != len(requests):
+        raise AssertionError(f"{len(done)} of {len(requests)} served")
+    burst_peak = torch.cuda.max_memory_allocated()
+    for kind, r, k, res in done:
+        for f, want in want_of(kind, k).items():
+            got = host(getattr(res.value, f))
+            if isinstance(want, torch.Tensor):
+                equal = torch.equal(got, want)
+            else:
+                equal = (int(got) if isinstance(got, torch.Tensor)
+                         else got) == want
+            if not equal:
+                raise AssertionError(f"served {kind} {r}: {f} differs "
+                                     f"from phases 4 / 7 / 9")
+        res.value = None               # the slot's tensors leave the card
+    log(f"[16 serve] burst: {len(requests)} requests from 4 tenant threads "
+        f"({n_td} top-down BFS, {n_dir} direction BFS (bitmap), "
+        f"{len(vals['sssp_roots'][:2])} SSSP, 2 CC, 1 multi_bfs of "
+        f"{len(sources)} sources "
+        f"k=2), every result ok and equal to phases 4, 7, 9 field for "
+        f"field; {burst_s:.2f} s wall, {len(requests) / burst_s:.4f} "
+        f"queries/s")
+    snap = srv.metrics_snapshot()
+    rep["burst"] = {"s": burst_s, "qps": len(requests) / burst_s,
+                    "launches": launches, "programs": {}}
+    v9 = report["values"]
+    # each slot's time as a direct session call in phases 4, 7 and 9
+    direct_s = {"td": lambda r: td_s[td_roots.index(r)],
+                "dir": lambda r: dir_s[dir_roots.index(r)],
+                "sssp": lambda r: v9["sssp_s"][td_roots.index(r)],
+                "cc": lambda r: v9["cc_s"], "mbfs": lambda r: v9["khop_s"]}
+    for kind in ("td", "dir", "sssp", "cc", "mbfs"):
+        mine = [(r, res) for kd, r, _, res in done if kd == kind]
+        rs = [res for _, res in mine]
+        # a batch's results share its exec_s; batches in execution order
+        by_batch = {}
+        for r, res in mine:
+            by_batch.setdefault(res.exec_s, []).append((res.seq, r, res))
+        batches = sorted(by_batch.values(),
+                         key=lambda ms: min(m[2].queued_s for m in ms))
+        cmp = []
+        for members in batches:
+            members.sort(key=lambda m: m[0])
+            res0 = members[0][2]
+            slots = [m[1] for m in members]
+            if kind != "cc":            # pad slots repeat the first root
+                slots += [slots[0]] * (res0.padded_to - len(slots))
+            else:                       # the callers share one run
+                slots = slots[:1]
+            cmp.append((len(members), res0.padded_to, res0.exec_s,
+                        sum(direct_s[kind](x) for x in slots),
+                        direct_s[kind](slots[0])
+                        if res0.padded_to > len(members) else 0.0))
+        live = [c[0] for c in cmp]
+        pads = sum(c[1] - c[0] for c in cmp if kind != "cc")
+        row = {"n": len(rs), "qps": len(rs) / burst_s,
+               "queued_s": [res.queued_s for res in rs],
+               "exec_s": [res.exec_s for res in rs],
+               "batches": cmp, "occupancy": sum(live) / len(live),
+               "pad_slots": pads,
+               "pad_s": sum(c[2] * (c[1] - c[0]) / c[1] for c in cmp
+                            if kind != "cc"),
+               "pad_direct_s": sum(c[4] for c in cmp)}
+        rep["burst"]["programs"][kind] = row
+        log(f"[16 serve] {kind}: {len(rs)} served, queued_s "
+            f"{percentiles(row['queued_s'])}, exec_s "
+            f"{percentiles(row['exec_s'])}, {row['qps']:.4f} queries/s, "
+            f"occupancy {row['occupancy']:.2f}; pad slots {pads}: "
+            f"{row['pad_s']:.3f} s of their batches' exec_s, the repeated "
+            f"roots {row['pad_direct_s']:.3f} s as direct calls; batches "
+            f"in order (live/padded: exec_s vs the same slots' direct "
+            f"calls in phases 4 / 7 / 9) " + ", ".join(
+                f"{a}/{b}: {e:.3f} vs {d:.3f} s ({e / d - 1:+.2%})"
+                for a, b, e, d, _ in cmp))
+    log(f"[16 serve] metrics_snapshot aot_cache {snap['aot_cache']}; "
+        f"runners {snap['runners']}; mean occupancy "
+        f"{snap['mean_occupancy']}, pad_waste_frac {snap['pad_waste_frac']}")
+    log(f"[16 serve] launches over the burst {launches}")
+    require_launched(launches, ("expand_chunk", "compact_rows", "pack_bits",
+                                "unpack_bits", "bottomup_chunk",
+                                "expand_chunk_values"),
+                     "phase 16's burst")
+    rep["aot_cache"] = snap["aot_cache"]
+    del srv, sess
+
+    # -- (c) serve-drain: an FT batch loses a device and drains ---------------
+    rdir = os.path.join(HERE, "build", "serve_drain")
+    shutil.rmtree(rdir, ignore_errors=True)
+    ft_config = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
+                          fault_tolerance=True, ckpt_every=2)
+    dsrv = GraphServer({name: graph}, ServeConfig(
+        max_batch=2, window_s=0.05, recovery_dir=rdir,
+        retry=RetryPolicy(max_retries=0, backoff_s=0.0)))
+    injector = DeviceLossInjector(3, fires=1)
+    tickets = [dsrv.bfs(name, r, config=ft_config, tenant=f"t{i}",
+                        injector=injector if i == 0 else None)
+               for i, r in enumerate(td_roots[:2])]
+    zero_counts()
+    torch.cuda.synchronize()
+    at_drain = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with dsrv:
+        dsrv.drain()
+        runners = dsrv.metrics_snapshot()["runners"][name]
+    drain_s = time.perf_counter() - t0
+    drain_peak = torch.cuda.max_memory_allocated()
+    ckpt_bytes = dir_bytes(rdir)
+    lost = []
+    for k, tk in enumerate(tickets):
+        res = tk.result(timeout=60)
+        if not res.ok:
+            lost.append(res.error)
+            continue
+        lv, pr, nl, es = scalar[k]
+        v = res.value
+        if not (torch.equal(v.level.cpu(), lv) and torch.equal(v.pred.cpu(),
+                                                               pr)
+                and int(v.n_levels) == nl and v.edges_scanned == es):
+            raise AssertionError(f"drained bfs {td_roots[k]} differs from "
+                                 f"phase 4")
+        res.value = v = None
+    if lost or runners["recovery_resumes"] != 1 or injector.count != 1:
+        raise AssertionError(f"serve-drain: {len(lost)} lost {lost}, "
+                             f"resumes {runners['recovery_resumes']}, fires "
+                             f"{injector.count}; allocated "
+                             f"{at_drain / 2**30:.2f} GiB before, peak "
+                             f"{drain_peak / 2**30:.2f} GiB")
+    drain_launches = read_counts()
+    require_launched(drain_launches, ("expand_chunk", "compact_rows"),
+                     "phase 16's serve-drain")
+    log(f"[16 serve] serve-drain: 2 top-down roots in one FT batch "
+        f"(ckpt_every=2), a device loss at level 3 with max_retries=0: "
+        f"0 lost, recovery_resumes {runners['recovery_resumes']}, drained "
+        f"{runners['recovery_drained']}, equal to phase 4 (preds "
+        f"included); {drain_s:.2f} s; checkpoint directory {ckpt_bytes} B "
+        f"({ckpt_bytes / 2**30:.2f} GiB); allocated {at_drain / 2**30:.2f} "
+        f"GiB before, peak {drain_peak / 2**30:.2f} GiB; launches "
+        f"{drain_launches}")
+    shutil.rmtree(rdir, ignore_errors=True)
+    rep["drain"] = {"s": drain_s, "ckpt_bytes": ckpt_bytes,
+                    "peak_bytes": drain_peak,
+                    "resumes": runners["recovery_resumes"],
+                    "launches": drain_launches}
+    del dsrv, tickets
+
+    # -- (d) release_edges on the resident graph -------------------------------
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    graph.release_edges()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"[16 serve] release_edges(): allocated {before / 2**30:.2f} -> "
+        f"{after / 2**30:.2f} GiB (ensure_csr dropped the graph's edges "
+        f"in phase 7); peak memory of the warm-up and burst "
+        f"{burst_peak / 2**30:.2f} GiB, of the serve-drain "
+        f"{drain_peak / 2**30:.2f} GiB")
+    rep["release_edges_bytes"] = [before, after]
+    rep["peak_bytes"] = burst_peak
+    rep["seconds"] = time.perf_counter() - t_phase
+    report["serve"] = rep
+    phases.end("16 serve")
+
+
 def run_exchange_8x8(torch, graph, knobs, roots, report):
     """Phase 14b, on phase 11's 8x8 graph: exchange="auto" resolves to the
     butterfly (3 stages); BFS both ways, CC and multi-BFS under list and
@@ -2117,7 +2456,7 @@ def main() -> int:
     KF.compact_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times, teps, scalar = [], [], []
-    keep = max(args.batch, TD_EQUAL_ROOTS, args.sssp_roots)
+    keep = max(args.batch, TD_EQUAL_ROOTS, args.sssp_roots, SERVE_TD_ROOTS)
     reached = []             # per root: (root, reached count, smallest id)
     best_level = torch.full((n,), I32_MAX, dtype=torch.int32, device=dev)
     best_src = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -2258,15 +2597,27 @@ def main() -> int:
     # -- 7. the direction-optimised path -------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before_csr = torch.cuda.memory_allocated()
+    # what the graph drops once the CSR exists; the script keeps its own
+    # references (validation and phase 15 (e) re-plan from them)
+    dropped = (graph.edges.numel() * graph.edges.element_size()
+               + graph.edge_weights.numel()
+               + sum(k.numel() * k.element_size()
+                     for k in graph.edge_index().keys))
     t0 = time.perf_counter()
     graph.ensure_csr()
     torch.cuda.synchronize()
     csr_s = time.perf_counter() - t0
     csr_peak = torch.cuda.max_memory_allocated()
+    if graph.edges is not None or graph._edge_index is not None:
+        raise AssertionError("ensure_csr kept the graph's edge list")
     log(f"[7 dir-run] ensure_csr: CSR twin nnz per block "
         f"{graph.csr['nnz'].flatten().tolist()} in {csr_s:.1f} s; peak "
-        f"memory {csr_peak / 2**30:.2f} GiB, resident "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"memory {csr_peak / 2**30:.2f} GiB, allocated "
+        f"{before_csr / 2**30:.2f} GiB before, resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after; the graph "
+        f"dropped its edge list, weights and EdgeIndex "
+        f"({dropped / 2**30:.2f} GiB, held on by this script)")
     dir_config = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
                            direction=True, fold_codec="bitmap")
     dsess = graph.session(dir_config)
@@ -2523,6 +2874,8 @@ def main() -> int:
                      report, phases)
     run_ft(torch, args, graph, td_roots, scalar, dscalar, vals, report,
            phases)
+    run_serve(torch, args, graph, td_roots, roots, scalar, dscalar, times,
+              dtimes, dir_config, vals, report, phases)
     # phase 3b's arguments are views of the graph's CSC: drop them with it
     del graph, weights, sess, dsess, eng, deng, cumul, front, ftot, \
         col_off, row_idx, words
@@ -2530,7 +2883,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
                    report, phases)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     del edges, index, vals
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    log(f"[15 ft] the script's edge list and EdgeIndex dropped: "
+        f"{freed / 2**30:.2f} GiB freed")
+    report["edges_index_bytes"] = freed
     torch.cuda.empty_cache()
     run_delta(torch, dev, args, kernels, report, phases)
     report["kernels"] = kernels
@@ -2543,6 +2903,8 @@ def main() -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
+    log(f"[6 report] peak memory by phase (GiB): " + ", ".join(
+        f"{k} {v / 2**30:.2f}" for k, v in peaks(report)))
     log(f"[6 report] whole script {report['script_s']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -9,8 +9,8 @@ tensor, read together.  The chunk loops then run without further reads.
 A direction-optimised program (`algos/direction.py`) reads twice per level:
 the frontier size decides the direction, then the chosen direction's
 workload is planned and its totals read.  `edges_scanned` sums the exact
-totals in Python ints (the JAX engine's `wide_add` (hi, lo) uint32 pair is
-not needed).
+totals in Python ints; `wide_add` / `wide_total` keep the JAX engine's
+(hi, lo) uint32 pair contract for callers that hold such pairs.
 
 A batch of searches runs root by root, as `lax.map` does.
 
@@ -45,6 +45,25 @@ from repro_torch.kernels import expand as expand_kernels
 from repro_torch.kernels import fold as fold_kernels
 from repro_torch.kernels.select import resolve_path
 from repro_torch.obs import trace as T
+
+
+def wide_add(hi, lo, delta):
+    """(hi, lo) uint32 pair += delta (any non-negative integer dtype; delta
+    wraps to its low 32 bits, as the JAX engine's cast does).  Tensors in,
+    tensors of the input dtypes out."""
+    mask = 0xFFFFFFFF
+    s = lo.to(torch.int64) + (torch.as_tensor(delta, device=lo.device)
+                              .to(torch.int64) & mask)
+    carry = s >> 32
+    return ((hi.to(torch.int64) + carry) & mask).to(hi.dtype), \
+        (s & mask).to(lo.dtype)
+
+
+def wide_total(hi, lo) -> int:
+    """Sum per-processor (hi, lo) pairs into one exact Python int."""
+    hi = torch.as_tensor(hi).to(torch.int64)
+    lo = torch.as_tensor(lo).to(torch.int64)
+    return (int(hi.sum()) << 32) + int(lo.sum())
 
 
 class FrontierEngine:
@@ -89,6 +108,10 @@ class FrontierEngine:
                 are bit-identical to them.
     ckpt_every: levels per resumable segment (the K of "checkpoint every
                 K levels"); only consulted when fault_tolerance=True.
+
+    `trace_count` counts the executable-cache entries built for this engine
+    (`api.session.Runnable`): one per cache miss, where the JAX engine
+    counts one trace of its level loop.
     """
 
     def __init__(self, topo, program, *, fold_codec=None,
@@ -140,6 +163,7 @@ class FrontierEngine:
         self.codec = get_fold_codec(
             fold_codec if fold_codec is not None else program.codec_hint,
             topo.grid, ops=self.fold_ops)
+        self.trace_count = 0
 
     # -- the level loop -------------------------------------------------------
     #

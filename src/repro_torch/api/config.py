@@ -8,11 +8,28 @@ the CPU), "kernel" or "reference" (`repro_torch.kernels.select`).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 from repro_torch.core.types import Grid2D
 from repro_torch.dist.strategy import get_exchange
 from repro_torch.kernels.select import check_path
+
+
+def resolve_fold_codec(fold_codec=None, fold_bitmap=None):
+    """Route the legacy `fold_bitmap` kwarg into the `fold_codec` spelling.
+
+    `fold_bitmap` is deprecated: passing it (either value) warns and, when no
+    explicit fold_codec is given, maps True -> "bitmap" / False -> "list".
+    """
+    if fold_bitmap is not None:
+        warnings.warn(
+            "fold_bitmap is deprecated; spell the wire format as "
+            "BFSConfig(fold_codec='bitmap')", DeprecationWarning,
+            stacklevel=3)
+        if fold_codec is None:
+            fold_codec = "bitmap" if fold_bitmap else "list"
+    return "list" if fold_codec is None else fold_codec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +123,13 @@ class BFSConfig:
                              f"{self.edge_chunk}")
 
     @property
+    def codec_name(self) -> str:
+        """The fold codec's name ("list" for "list" and for a `ListFold()`
+        instance alike): the codec's component of every engine key."""
+        fc = self.fold_codec
+        return fc if isinstance(fc, str) else getattr(fc, "name", repr(fc))
+
+    @property
     def direction_mode(self):
         """The direction spelling normalised: None (pure top-down),
         "adaptive" or "bottomup"."""
@@ -140,10 +164,12 @@ class BFSConfig:
 
     @property
     def engine_key(self) -> tuple:
-        """What makes two configs share one engine: every knob that changes
-        the engine (the exchange by name; `GraphSession` resolves "auto"
-        before any engine is keyed)."""
-        return (self.fold_codec, self.direction_mode, self.edge_chunk,
+        """What makes two configs share one engine, and with the graph's
+        shapes and the batch size one entry of the graph's executable
+        cache: every knob that changes the engine, the codec and the
+        exchange by name (`GraphSession` resolves "auto" before any engine
+        is keyed)."""
+        return (self.codec_name, self.direction_mode, self.edge_chunk,
                 self.dedup, self.max_levels, self.alpha, self.beta,
                 self.expand_fn, self.expand, self.fold, self.bottomup,
                 self.exchange_name, self.telemetry, self.fault_tolerance,

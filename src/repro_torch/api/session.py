@@ -16,13 +16,27 @@ With `BFSConfig(telemetry=True)` every query also returns its per-level
 `BFSConfig(fault_tolerance=True, ckpt_every=K)` every query runs the
 segmented level loop under `repro_torch.runtime.run_segmented` and takes
 `recovery=RecoveryPlan(...)` (checkpointer, loss injector, retry policy,
-a snapshot to resume from); outputs are bit-identical.  PyTorch runs
-eagerly, so there is no compiled executable cache; capturing
-the level loop in CUDA graphs is later work.
+a snapshot to resume from); outputs are bit-identical.
+
+Every query that is not fault-tolerant goes through the graph's executable
+cache (`AOTCache`, keyed as the JAX package keys its AOT executables:
+engine key, graph array shapes, batch size or argument shape).  PyTorch
+runs eagerly, so an entry is the engine's entry point bound to the graph's
+arrays and the batch size, and a miss builds one (`FrontierEngine.
+trace_count` counts them); `cache_stats()` equals the JAX graph's on the
+same calls.  Capturing the level loop in CUDA graphs is later work.
+
+The edge list, its (E,) weights and the Graph500 `EdgeIndex` stay on the
+device only while the CSR twin is unplanned: `ensure_csr` drops them once
+both layouts are resident, `release_edges()` drops them at once, and
+`bfs(validate=True)` then asks for the edge array (`validate=edges`), as
+in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -82,22 +96,117 @@ def _value_tensor(vals, device) -> torch.Tensor:
     return vals.to(device=device)
 
 
+class AOTCache:
+    """Bounded LRU over the graph's executable-cache entries, with
+    serve-grade stats (the JAX package's `AOTCache`, same behaviour).
+
+    One entry per (engine key, graph shapes, batch size or argument
+    shape).  Eviction rebuilds the entry on next use, so the bound trades
+    rebuilds for memory, never correctness.  `hits` / `misses` /
+    `evictions` feed `repro_torch.serve` accounting.
+    """
+
+    def __init__(self, maxsize: int = 32):
+        if maxsize < 1:
+            raise ValueError(f"AOTCache needs maxsize >= 1, got {maxsize}")
+        self.maxsize = maxsize
+        self._entries = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key, default=None):
+        try:
+            value = self._entries[key]
+        except KeyError:
+            self.misses += 1
+            return default
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return value
+
+    def __setitem__(self, key, value):
+        self._entries[key] = value
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+            self.evictions += 1
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __contains__(self, key):          # no stats: introspection only
+        return key in self._entries
+
+    def stats(self) -> dict:
+        return {"size": len(self._entries), "maxsize": self.maxsize,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Runnable:
+    """One entry of the executable cache: an engine's entry point bound to
+    the graph's arrays (`extra`: the CSR twin, weights) and, for a rooted
+    program, a batch size B.  A batched entry runs a list of B roots
+    through `run_batch` and a scalar root through `run` (the scalar query
+    is the B = 1 entry, as in the JAX session); any other entry runs its
+    argument through `run`."""
+    engine: FrontierEngine
+    graph: LocalGraph2D
+    extra: tuple
+    B: int | None = None
+
+    def __repr__(self) -> str:
+        return (f"Runnable({self.engine.program.name}, "
+                f"B={self.B if self.B is not None else '-'})")
+
+    def __call__(self, arg):
+        if self.B is not None and isinstance(arg, list):
+            return self.engine.run_batch(self.graph, arg, self.extra)
+        return self.engine.run(self.graph, arg, self.extra)
+
+
+def build_engine(topology: StackedTopology, config: BFSConfig) \
+        -> FrontierEngine:
+    """One engine per (topology, engine key): the BFS level loop with the
+    config's codec, chunking, paths and direction baked in, independent of
+    the graph's data."""
+    program = BFSLevelsProgram()
+    if config.direction_mode is not None:
+        program = DirectionProgram(program, mode=config.direction_mode,
+                                   alpha=config.alpha, beta=config.beta)
+    return FrontierEngine(
+        topology, program, fold_codec=config.fold_codec,
+        edge_chunk=config.edge_chunk, max_levels=config.max_levels,
+        expand=config.expand, expand_fn=config.expand_fn, fold=config.fold,
+        dedup=config.dedup, bottomup=config.bottomup,
+        exchange=config.exchange, telemetry=config.telemetry,
+        fault_tolerance=config.fault_tolerance,
+        ckpt_every=config.ckpt_every)
+
+
+_NO_EDGES = ("this DistGraph holds no edge list: it is released once the "
+             "CSR twin is planned or by release_edges(), and "
+             "from_partition keeps only what it is given")
+
+
 class DistGraph:
     """A resident, partitioned graph on one device: plan once, query many.
 
     Holds the stacked CSC blocks, the CSR twin once a direction-enabled
     session needs it, the per-edge weights in CSC order (and in CSR order
-    beside the CSR twin) when planned with them, the topology, the engines
-    every session over this graph shares and, for `bfs(validate=True)`,
-    SSSP's checks and the CSR build, the edge list, its (E,) weights and
-    its `EdgeIndex` (built on the first validated query).  Unlike the JAX
-    package, the edge list and weights stay after the CSR exists:
-    validation needs them."""
+    beside the CSR twin) when planned with them, the topology, and the
+    engine and executable caches every session over this graph shares.
+    While the CSR twin is unplanned it also holds the edge list, its (E,)
+    weights (what the CSR build lays out) and, once `bfs(validate=True)`
+    ran, the Graph500 `EdgeIndex`; `ensure_csr` and `release_edges` drop
+    all three, as the JAX graph drops its host edges."""
 
     def __init__(self, topology: StackedTopology, csc: LocalGraph2D, *,
                  csr: dict | None = None, edges=None, n: int | None = None,
                  config: BFSConfig = None, weights=None, csr_weights=None,
-                 edge_weights=None):
+                 edge_weights=None, aot_cache_size: int = 32):
         self.topology = topology
         self.grid = topology.grid
         self.device = topology.device
@@ -105,16 +214,20 @@ class DistGraph:
         self.csr = csr
         self.n = int(n) if n is not None else topology.grid.n
         self.config = config if config is not None else BFSConfig()
-        self.edges = edges
         self.weights = weights            # (R, C, e_max) in CSC order
         self.csr_weights = csr_weights    # (R, C, e_max) in CSR order
-        self.edge_weights = edge_weights  # (E,) aligned with `edges`
+        # kept ONLY while the CSR twin may still have to be planned
+        self.edges = edges if csr is None else None
+        self.edge_weights = edge_weights if csr is None else None
         self._edge_index = None
-        self._engines = {}
+        self._engines = {}           # engine key -> engine (BFS or value)
+        # (engine key, shapes, B or arg shape) -> Runnable, a bounded LRU
+        self._compiled = AOTCache(aot_cache_size)
 
     @classmethod
     def from_edges(cls, edges, config: BFSConfig = None, *, device=None,
-                   n: int | None = None, weights=None) -> "DistGraph":
+                   n: int | None = None, weights=None,
+                   aot_cache_size: int = 32) -> "DistGraph":
         """Plan a graph into residency: partition on the device.
 
         edges: (2, E) [src, dst] numpy array or torch tensor.  device: None
@@ -123,7 +236,9 @@ class DistGraph:
         per-edge values (uint8 for SSSP), numpy or tensor, laid out in the
         CSC order and kept resident beside the graph.  The CSR twin (and
         the CSR-ordered weights) is planned lazily, on the first
-        direction-enabled session (`ensure_csr`)."""
+        direction-enabled session (`ensure_csr`), which then drops the edge
+        list and its weights.  aot_cache_size: bound of the graph's
+        executable cache (`AOTCache`)."""
         config = config if config is not None else BFSConfig()
         device = resolve_device(device)
         edges = _edge_tensor(edges, device)
@@ -136,7 +251,8 @@ class DistGraph:
             w_edge = _value_tensor(weights, device)
             w = partition_edge_vals(edges, w_edge, grid)
         return cls(StackedTopology(grid, device), csc, edges=edges, n=n,
-                   config=config, weights=w, edge_weights=w_edge)
+                   config=config, weights=w, edge_weights=w_edge,
+                   aot_cache_size=aot_cache_size)
 
     @classmethod
     def from_partition(cls, grid: Grid2D, csc: LocalGraph2D,
@@ -147,7 +263,8 @@ class DistGraph:
         JAX package's `partition_2d` / `partition_2d_csr` /
         `partition_edge_vals(_csr)` through `repro_torch.convert`).  The
         device is the partition's; `edges` enables `bfs(validate=True)` and
-        a lazy CSR build, `csr` supplies the CSR twin directly; `weights` /
+        a lazy CSR build (and is dropped when `csr` is given), `csr`
+        supplies the CSR twin directly; `weights` /
         `csr_weights` are the (R, C, e_max) per-edge values in CSC / CSR
         order."""
         config = config if config is not None else BFSConfig()
@@ -166,48 +283,60 @@ class DistGraph:
         """Plan the CSR twin on demand (the first direction-enabled
         session), block by block from the resident edge list; with weights,
         also their CSR-ordered copy (direction-optimised SSSP pulls over
-        it)."""
+        it).  Both layouts resident, the edge list, its weights and the
+        `EdgeIndex` are dropped (`release_edges`)."""
         if self.csr is None:
             if self.edges is None:
                 raise ValueError(
-                    "direction optimisation needs the CSR twin, but this "
-                    "DistGraph has no edge list; pass csr= or edges= to "
-                    "from_partition, or use from_edges")
+                    f"direction optimisation needs the CSR twin, but "
+                    f"{_NO_EDGES}; pass csr= to from_partition, or plan "
+                    f"with from_edges")
             self.csr = partition_2d_csr(self.edges, self.grid)
             if self.edge_weights is not None:
                 self.csr_weights = partition_edge_vals_csr(
                     self.edges, self.edge_weights, self.grid)
+            self.release_edges()
         return self.csr
+
+    def release_edges(self) -> None:
+        """Drop the edge list, its (E,) weights and the `EdgeIndex` (a
+        long-lived serving graph that will open no direction-enabled
+        session and validates, if at all, against an edge array it is
+        given)."""
+        self.edges = None
+        self.edge_weights = None
+        self._edge_index = None
+
+    def cache_stats(self) -> dict:
+        """Hit / miss / eviction counters of the executable cache (what
+        `repro_torch.serve` accounting and its metrics registry read)."""
+        return self._compiled.stats()
+
+    def aot_cache_stats(self) -> dict:
+        """Deprecated spelling of `cache_stats()` (same dict)."""
+        warnings.warn(
+            "DistGraph.aot_cache_stats() is deprecated; use "
+            "DistGraph.cache_stats() (same dict)", DeprecationWarning,
+            stacklevel=2)
+        return self.cache_stats()
 
     def engine_for(self, config: BFSConfig) -> FrontierEngine:
         key = config.engine_key
         eng = self._engines.get(key)
         if eng is None:
-            program = BFSLevelsProgram()
-            if config.direction_mode is not None:
-                program = DirectionProgram(program,
-                                           mode=config.direction_mode,
-                                           alpha=config.alpha,
-                                           beta=config.beta)
-            eng = FrontierEngine(
-                self.topology, program,
-                fold_codec=config.fold_codec, edge_chunk=config.edge_chunk,
-                max_levels=config.max_levels, expand=config.expand,
-                expand_fn=config.expand_fn, fold=config.fold,
-                dedup=config.dedup, bottomup=config.bottomup,
-                exchange=config.exchange, telemetry=config.telemetry,
-                fault_tolerance=config.fault_tolerance,
-                ckpt_every=config.ckpt_every)
+            eng = build_engine(self.topology, config)
             self._engines[key] = eng
         return eng
 
     def edge_index(self) -> EdgeIndex:
-        """The sorted edge keys of rule 4, built once per graph."""
+        """The sorted edge keys of rule 4, built once per graph (and
+        dropped with the edge list)."""
         if self._edge_index is None:
             if self.edges is None:
                 raise ValueError(
-                    "bfs(validate=True) needs the edge list; plan with "
-                    "from_edges or pass edges= to from_partition")
+                    f"bfs(validate=True) needs the edge list, but "
+                    f"{_NO_EDGES}; pass the edge array: bfs(roots, "
+                    f"validate=edges)")
             self._edge_index = EdgeIndex(self.edges, self.n)
         return self._edge_index
 
@@ -272,18 +401,54 @@ class GraphSession:
                 "BFSConfig(fault_tolerance=True)")
         return self.config.fault_tolerance
 
-    def _run_roots(self, eng, roots_np, extra, recovery):
-        """A scalar-or-batch rooted query (BFS, SSSP).  Under fault
-        tolerance a scalar root runs as a batch of one, as in the JAX
-        package, so its snapshots carry JAX's batched schema."""
+    def compiled_for(self, B: int) -> Runnable:
+        """The executable-cache entry of a (B,)-roots BFS sweep, cached on
+        the DistGraph keyed by (engine key, graph array shapes, B).
+
+        Public capacity surface: `repro_torch.serve` warms its padding
+        classes through this before admitting traffic.  Returns the entry
+        (`bfs` is the ergonomic path)."""
+        if B < 1:
+            raise ValueError(f"batch capacity B must be >= 1, got {B}")
+        g = self.graph.csc
+        key = (self.config.engine_key, tuple(g.col_off.shape),
+               tuple(g.row_idx.shape), B)
+        entry = self.graph._compiled.get(key)
+        if entry is None:
+            entry = Runnable(self.engine, g, self.extra, B)
+            self.engine.trace_count += 1
+            self.graph._compiled[key] = entry
+        return entry
+
+    def _algo_compiled(self, eng, key, arg_shape: tuple, extra, *,
+                       batched: bool = False) -> Runnable:
+        """The executable-cache entry of one value program, cached on the
+        DistGraph keyed by (engine key, graph array shapes, batched, arg
+        shape)."""
+        g = self.graph.csc
+        ckey = (key, tuple(g.col_off.shape), tuple(g.row_idx.shape),
+                batched, tuple(arg_shape))
+        entry = self.graph._compiled.get(ckey)
+        if entry is None:
+            entry = Runnable(eng, g, extra, arg_shape[0] if batched else None)
+            eng.trace_count += 1
+            self.graph._compiled[ckey] = entry
+        return entry
+
+    def _run_roots(self, eng, roots_np, extra, recovery, entry_for):
+        """A scalar-or-batch rooted query (BFS, SSSP) through the cache
+        entry `entry_for(B)` (a scalar root is the B = 1 entry).  Under
+        fault tolerance the query bypasses the cache, and a scalar root
+        runs as a batch of one, as in the JAX package, so its snapshots
+        carry JAX's batched schema."""
         if self._check_recovery(recovery):
             batch = np.atleast_1d(roots_np).tolist()
             out = self._run_recoverable(eng, batch, *extra, B=len(batch),
                                         recovery=recovery)
             return _first(out) if roots_np.ndim == 0 else out
         if roots_np.ndim == 0:
-            return eng.run(self.graph.csc, int(roots_np), extra)
-        return eng.run_batch(self.graph.csc, roots_np.tolist(), extra)
+            return entry_for(1)(int(roots_np))
+        return entry_for(roots_np.shape[0])(roots_np.tolist())
 
     def bfs(self, roots, validate=False, recovery=None) -> BFSOutput:
         """Search from a scalar root or a (B,) batch of roots.
@@ -313,7 +478,8 @@ class GraphSession:
         if roots_np.ndim > 1:
             raise ValueError(f"roots must be a scalar or 1D batch, got "
                              f"shape {roots_np.shape}")
-        out = self._run_roots(self.engine, roots_np, self.extra, recovery)
+        out = self._run_roots(self.engine, roots_np, self.extra, recovery,
+                              self.compiled_for)
         if roots_np.ndim == 0:
             levels, preds = [out.level], [out.pred]
         else:
@@ -334,10 +500,14 @@ class GraphSession:
     # ------------------------------------------------------------------
 
     def _algo_engine(self, program, fold_codec, max_levels: int):
-        """The engine of a value program, cached on the DistGraph like the
-        BFS engines (the config's chunking and paths apply; the codec is
-        the call's, else the program's hint).  A direction-enabled session
-        wraps the program in `DirectionProgram`."""
+        """The engine of a value program (see `_keyed_algo_engine`)."""
+        return self._keyed_algo_engine(program, fold_codec, max_levels)[0]
+
+    def _keyed_algo_engine(self, program, fold_codec, max_levels: int):
+        """(engine, its key) of a value program, cached on the DistGraph
+        like the BFS engines (the config's chunking and paths apply; the
+        codec is the call's, else the program's hint).  A direction-enabled
+        session wraps the program in `DirectionProgram`."""
         codec = fold_codec if fold_codec is not None else program.codec_hint
         codec_name = codec if isinstance(codec, str) \
             else getattr(codec, "name", repr(codec))
@@ -358,7 +528,7 @@ class GraphSession:
                 fault_tolerance=cfg.fault_tolerance,
                 ckpt_every=cfg.ckpt_every)
             self.graph._engines[key] = eng
-        return eng
+        return eng, key
 
     def _algo_csr_extra(self, *, weights: bool = False) -> tuple:
         """The CSR-twin arrays a direction-enabled value program appends
@@ -384,13 +554,13 @@ class GraphSession:
         vertex.  fold_codec: None = the program's hint ("bitmap"); every
         codec gives the same labels.  recovery: see `bfs`."""
         max_levels = self.graph.grid.n + 1     # diameter bound
-        eng = self._algo_engine(ConnectedComponentsProgram(), fold_codec,
-                                max_levels)
+        eng, key = self._keyed_algo_engine(ConnectedComponentsProgram(),
+                                     fold_codec, max_levels)
         extra = self._algo_csr_extra()
         if self._check_recovery(recovery):
             return self._traced(self._run_recoverable(
                 eng, None, *extra, recovery=recovery))
-        return self._traced(eng.run(self.graph.csc, None, extra))
+        return self._traced(self._algo_compiled(eng, key, (), extra)(None))
 
     def sssp(self, roots, fold_codec=None, recovery=None) -> SSSPOutput:
         """Shortest distances over the planned per-edge uint8 weights.
@@ -408,9 +578,12 @@ class GraphSession:
             raise ValueError(f"roots must be a scalar or 1D batch, got "
                              f"shape {roots_np.shape}")
         max_levels = self.graph.grid.n + 1     # Bellman-Ford round bound
-        eng = self._algo_engine(SSSPProgram(), fold_codec, max_levels)
+        eng, key = self._keyed_algo_engine(SSSPProgram(), fold_codec, max_levels)
         extra = (self.graph.weights,) + self._algo_csr_extra(weights=True)
-        return self._traced(self._run_roots(eng, roots_np, extra, recovery))
+        return self._traced(self._run_roots(
+            eng, roots_np, extra, recovery,
+            lambda B: self._algo_compiled(eng, key, (B,), extra,
+                                          batched=True)))
 
     def multi_bfs(self, sources, k: int | None = None,
                   fold_codec=None, recovery=None) -> MultiBFSOutput:
@@ -427,13 +600,14 @@ class GraphSession:
             raise ValueError(f"sources must be a non-empty 1D array, got "
                              f"shape {sources_np.shape}")
         max_levels = int(k) if k is not None else self.config.max_levels
-        eng = self._algo_engine(MultiSourceBFSProgram(), fold_codec,
-                                max_levels)
+        eng, key = self._keyed_algo_engine(MultiSourceBFSProgram(), fold_codec,
+                                     max_levels)
         extra = self._algo_csr_extra()
         if self._check_recovery(recovery):
             return self._traced(self._run_recoverable(
                 eng, sources_np, *extra, recovery=recovery))
-        return self._traced(eng.run(self.graph.csc, sources_np, extra))
+        return self._traced(self._algo_compiled(
+            eng, key, sources_np.shape, extra)(sources_np))
 
 
 def _first(out):

@@ -157,6 +157,12 @@ def count_component_edges(edges, level) -> int:
     return total // 2
 
 
+def teps(edges, level, seconds: float) -> float:
+    """Traversed edges per second: the component's undirected input edges
+    over the search's seconds."""
+    return count_component_edges(edges, level) / max(seconds, 1e-12)
+
+
 def harmonic_mean(xs) -> float:
     xs = [max(float(x), 1e-30) for x in xs]
     return len(xs) / sum(1.0 / x for x in xs)

@@ -6,7 +6,9 @@ first use, from the checkout's sources only, into `build/kernels/` at the
 repository root (listed in `.gitignore`).  A library's file name carries a
 hash of its source and of the shared headers (`csrc/*.cuh`), so an edited
 source or header is rebuilt and a stale library is never loaded.  All
-sources compile at once, one `nvcc` process each.
+sources compile at once, one `nvcc` process each.  One lock serialises the
+check-build-load sequence, so threads that make their first launch together
+(the serving layer's workers) build each library once and share its handle.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
+# guards _libs and the build: two threads never run nvcc on one temporary
+# name or load a library twice
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -49,6 +55,11 @@ def build_all() -> dict:
 
     Returns {name: {"seconds", "log", "cached"}} -- the log holds nvcc's
     `-Xptxas -v` register and shared-memory summary."""
+    with _lock:
+        return _build_missing()
+
+
+def _build_missing() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {name: _lib_path(name) for name in SOURCES
             if not _lib_path(name).exists()}
@@ -80,12 +91,16 @@ def build_all() -> dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, building the sources first."""
     lib = _libs.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                _build_missing()
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
     return lib
 
 

@@ -10,11 +10,10 @@ recovered output against the same query run uninterrupted:
             "persistent" (retries exhaust -> elastic shrink-and-resume), or
             "repeated" (a second loss after the first resume -> two
             shrinks).
-  Runner    who recovers: "session" (RecoveryPlan on a GraphSession query)
-            or "elastic" (ElasticCoordinator re-plans onto the survivor
-            grid).  "serve" (a GraphServer drains the in-flight batch
-            through recovery) needs the serving layer, which the port does
-            not have yet (ROADMAP A12): it raises.
+  Runner    who recovers: "session" (RecoveryPlan on a GraphSession query),
+            "elastic" (ElasticCoordinator re-plans onto the survivor grid),
+            or "serve" (a GraphServer drains the in-flight batch through
+            recovery).
   DrillResult  the verdict: completion, bit-identity against the
             uninterrupted baseline, Graph500 predecessor validity where
             bit-identity is not the contract (BFS preds after a SHRUNKEN
@@ -24,6 +23,7 @@ recovered output against the same query run uninterrupted:
 from __future__ import annotations
 
 import dataclasses
+import tempfile
 
 import numpy as np
 import torch
@@ -158,6 +158,34 @@ def _compare(sc: Scenario, out, base, edges, arg, n: int):
     return bool(bit), None
 
 
+def _run_serve(sc: Scenario, ft_config, graph_factory, arg, stats: dict):
+    """Serve-drain drill: one FT batch interrupted mid-traversal must
+    drain through recovery with zero lost queries.
+
+    The server runs with max_retries=0, so ONE fire makes the loss escape
+    the segmented loop; the drain re-dispatch then resumes past it --
+    that is the persistent-loss story at serve granularity."""
+    from repro_torch.serve import GraphServer, ServeConfig
+
+    injector = DeviceLossInjector(sc.at_level, phase=sc.phase, fires=1)
+    graph = graph_factory(ft_config)
+    with tempfile.TemporaryDirectory() as d:
+        cfg = ServeConfig(retry=RetryPolicy(max_retries=0, backoff_s=0.0),
+                          recovery_dir=d, window_s=0.05,
+                          max_batch=len(arg))
+        with GraphServer({"drill": graph}, cfg) as srv:
+            tickets = [srv.bfs("drill", int(r), tenant=f"t{i}",
+                               injector=injector if i == 0 else None)
+                       for i, r in enumerate(arg)]
+            results = [t.result(timeout=300) for t in tickets]
+            srv.drain()
+            snap = srv.metrics_snapshot()["runners"]["drill"]
+    stats["resumes"] = snap["recovery_resumes"]
+    lost = sum(0 if r.ok else 1 for r in results)
+    values = [r.value for r in results if r.ok]
+    return values, lost
+
+
 def run_drill(sc: Scenario, *, edges, config, weights=None, n=None,
               baseline=None, device=None) -> DrillResult:
     """Execute one scenario and judge the recovery.
@@ -169,10 +197,6 @@ def run_drill(sc: Scenario, *, edges, config, weights=None, n=None,
     """
     from repro_torch.api.session import DistGraph
 
-    if sc.runner == "serve":
-        raise ValueError(
-            f"drill {sc.name!r}: runner='serve' needs the serving layer, "
-            f"not ported yet (ROADMAP A12)")
     if n is None:
         n = int(_host_edges(edges).max()) + 1
     method, arg = _query_args(sc, edges, n)
@@ -198,7 +222,20 @@ def run_drill(sc: Scenario, *, edges, config, weights=None, n=None,
                          injector=inj_desc, runner=sc.runner, ok=False,
                          grid_before=(grid.R, grid.C))
     try:
-        if sc.runner == "elastic":
+        if sc.runner == "serve":
+            stats = {}
+            values, lost = _run_serve(sc, ft_config, graph_factory, arg,
+                                      stats)
+            result.lost_queries = lost
+            result.resumes = int(stats.get("resumes", 0))
+            result.grid_after = (grid.R, grid.C)
+            if lost == 0:
+                result.bit_identical = all(
+                    _eq(v.level, baseline.level[b], n)
+                    and _eq(v.pred, baseline.pred[b], n)
+                    for b, v in enumerate(values))
+                result.ok = result.bit_identical
+        elif sc.runner == "elastic":
             coord = ElasticCoordinator(edges, ft_config, weights=weights,
                                        n=n, device=device,
                                        max_shrinks=2 if sc.kind != "repeated"

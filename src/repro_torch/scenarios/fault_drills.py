@@ -14,10 +14,8 @@ Three drill families over the program x codec grid:
                     resumes -- every program x codec (the acceptance
                     matrix), plus one repeated-loss drill (two shrinks).
   serve-drain       a GraphServer batch interrupted mid-traversal drains
-                    through recovery.  The list keeps it, as the JAX
-                    package's does; the port has no server yet (ROADMAP
-                    A12), so callers filter it out and `run_drill` refuses
-                    it.
+                    through recovery: zero lost queries, bit-identical
+                    answers.
 """
 from __future__ import annotations
 
@@ -70,7 +68,7 @@ def run_matrix(edges, config, *, weights=None, n=None, scenarios=None,
     results = []
     for sc in scenarios:
         bkey = (sc.program, sc.codec)
-        if bkey not in baselines and sc.runner != "serve":
+        if bkey not in baselines:
             bcfg = dataclasses.replace(config, fold_codec=sc.codec)
             sess = DistGraph.from_edges(edges, bcfg, n=n, weights=weights,
                                         device=device).session()
@@ -78,7 +76,7 @@ def run_matrix(edges, config, *, weights=None, n=None, scenarios=None,
             baselines[bkey] = getattr(sess, method)(
                 *(() if arg is None else (arg,)))
         res = run_drill(sc, edges=edges, config=config, weights=weights,
-                        n=n, baseline=baselines.get(bkey), device=device)
+                        n=n, baseline=baselines[bkey], device=device)
         results.append(res)
         if log is not None:
             log(f"drill {res.name}: ok={res.ok} "

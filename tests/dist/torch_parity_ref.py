@@ -45,7 +45,7 @@ grid runs, with `edge_chunk` 512:
     stats (resumes, segments, retries, resumed_from_level) under
     "el_{RxC}_{tag}_stats".
 With --drills (EDGES.npz holds `weights`) it runs the standard fault-drill
-matrix without `serve-drain` on the first grid (`repro.scenarios.
+matrix, `serve-drain` included, on the first grid (`repro.scenarios.
 run_matrix`, edge_chunk 512) and writes the rows as JSON under "drills".
 
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
@@ -202,14 +202,15 @@ def put_ft(out, graph, grid, roots, weights):
 
 
 def put_drills(out, grid, weights):
-    """The drill matrix without serve-drain, its rows as one JSON string."""
+    """The drill matrix, serve-drain included, its rows as one JSON
+    string."""
     import json
 
     from repro.scenarios import run_matrix, standard_matrix
 
     rows = [r.to_row() for r in run_matrix(
         edges, BFSConfig(grid=grid, edge_chunk=512), weights=weights, n=n,
-        scenarios=[s for s in standard_matrix() if s.runner != "serve"])]
+        scenarios=standard_matrix())]
     out["drills"] = np.asarray(json.dumps(rows))
 
 

@@ -31,8 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.algos.reference import cc_reference, multi_bfs_reference, \
-    sssp_reference
+from repro.algos import reference as jax_reference
 from repro.api import BFSConfig as JaxBFSConfig
 from repro.api import DistGraph as JaxDistGraph
 from repro.core.partition import partition_2d as jax_partition_2d
@@ -42,6 +41,8 @@ from repro.core.partition import partition_edge_vals_csr as \
     jax_edge_vals_csr
 from repro.core.types import Grid2D as JGrid2D
 from repro.graphgen import rmat_edges as jax_rmat_edges
+from repro_torch.algos.reference import cc_reference, k_hop_neighborhood, \
+    multi_bfs_reference, sssp_reference
 from repro_torch.api import BFSConfig, DistGraph
 from repro_torch.convert import csr_from_partition, \
     edge_vals_from_partition, graph_from_partition
@@ -270,7 +271,9 @@ def test_kernel_wrappers_equal_jax(graph_data, graphs, jax_multi, grid,
                 if eng.program.uses_bottomup else None
             eng.fold_ops = eng.codec.ops = KF
         _assert_out(call(sess), jax_multi, f"{tag}_{program}", program)
+    # drop the rewired engines and the cache entries bound to them
     sess.graph._engines.clear()
+    sess.graph._compiled._entries.clear()
 
 
 @pytest.mark.parametrize("grid", [(2, 2), (1, 4)])
@@ -314,6 +317,27 @@ def test_references_and_validators(graph_data, graphs):
     lref, sref = multi_bfs_reference(edges, N, roots, max_levels=2)
     _eq(out.level.numpy(), lref)
     _eq(out.src.numpy(), sref)
+
+
+def test_references_equal_jax_copies(graph_data):
+    """The port's numpy references (`repro_torch.algos.reference`, a copy)
+    equal the JAX package's on the test graph and on a directed star."""
+    edges, w, roots = graph_data
+    star = np.array([[0, 0, 0, 3], [1, 2, 3, 4]], np.int32)
+    for e, n in ((edges, N), (star, 5)):
+        _eq(cc_reference(e, n), jax_reference.cc_reference(e, n))
+        for root in roots[:2] if n == N else (0,):
+            ww = w if n == N else np.array([5, 1, 2, 7], np.uint8)
+            _eq(sssp_reference(e, ww, n, int(root)),
+                jax_reference.sssp_reference(e, ww, n, int(root)))
+        srcs = roots if n == N else [3, 0]
+        for k in (None, 1, 2):
+            for a, b in zip(multi_bfs_reference(e, n, srcs, max_levels=k),
+                            jax_reference.multi_bfs_reference(
+                                e, n, srcs, max_levels=k)):
+                _eq(a, b)
+        _eq(k_hop_neighborhood(e, n, srcs, 2),
+            jax_reference.k_hop_neighborhood(e, n, srcs, 2))
 
 
 def _relabel_self(x):

@@ -144,7 +144,8 @@ def test_direction_search_equals_jax(graph_data, jax_1x1, jax_multi, grid,
     assert graph.csr is None                 # planned lazily
     sess = graph.session(BFSConfig(grid=grid, direction=direction,
                                    fold_codec=codec))
-    assert graph.csr is not None and graph.edges is not None
+    # the CSR twin planned, the edge list is dropped (as in the JAX graph)
+    assert graph.csr is not None and graph.edges is None
     many = _assert_equal(sess, roots, _ref(grid, jax_1x1, jax_multi),
                          f"{tag}_{dtag(direction)}_{codec}_batch")
     dirs = many.directions.numpy()

@@ -1,9 +1,9 @@
 """The fault-drill harness in the port (`repro_torch.scenarios`, DESIGN.md
-sec. 15): the standard matrix without `serve-drain` at 2x2 on the CPU,
+sec. 15): the standard matrix, `serve-drain` included, at 2x2 on the CPU,
 every drill `ok` and its verdict equal to the JAX package's matrix on the
 same graph (run once in a subprocess with four forced host devices,
 tests/dist/torch_parity_ref.py --drills); the matrix's list equal to
-JAX's; `runner="serve"` refused, naming ROADMAP A12.
+JAX's.
 
 Inputs as tests/test_recovery.py makes them: `repro.graphgen.rmat_edges(
 jax.random.key(3), 7, 8)` as numpy, uint8 weights `(|31 u + v| mod 254) +
@@ -23,14 +23,13 @@ import torch
 from repro.graphgen import rmat_edges as jax_rmat_edges
 from repro.scenarios import standard_matrix as jax_standard_matrix
 from repro_torch.api import BFSConfig
-from repro_torch.scenarios import (Scenario, run_drill, run_matrix,
-                                   standard_matrix)
+from repro_torch.scenarios import run_matrix, standard_matrix
 
 SCALE, EF = 7, 8
 N = 1 << SCALE
 REF_SCRIPT = os.path.join(os.path.dirname(__file__), "dist",
                           "torch_parity_ref.py")
-DRILLS = [s for s in standard_matrix() if s.runner != "serve"]
+DRILLS = standard_matrix()
 # the verdict fields both packages must agree on (times and the error text
 # are not part of the contract)
 VERDICT = ("scenario", "injector", "runner", "ok", "bit_identical",
@@ -75,13 +74,11 @@ def jax_rows(gdata, tmp_path_factory):
 
 
 def test_standard_matrix_is_jax_list():
-    """The same drills in the same order, serve-drain included (callers
-    filter it until the serving layer is ported)."""
+    """The same drills in the same order, serve-drain included."""
     ours = [dataclasses.asdict(s) for s in standard_matrix()]
     theirs = [dataclasses.asdict(s) for s in jax_standard_matrix()]
     assert ours == theirs
-    assert [s.name for s in DRILLS] == [s.name for s in jax_standard_matrix()
-                                        if s.runner != "serve"]
+    assert "serve-drain/bfs/list" in [s.name for s in DRILLS]
 
 
 @pytest.mark.parametrize("name", [s.name for s in DRILLS])
@@ -96,11 +93,3 @@ def test_drill_matches_jax(port_rows, jax_rows, name):
         assert mine["grid_after"] != mine["grid_before"]
         assert mine["time_to_first_resumed_level_s"] > 0
 
-
-def test_serve_runner_names_its_roadmap_item(gdata):
-    edges, w = gdata
-    sc = Scenario(name="serve-drain/bfs/list", program="bfs",
-                  kind="persistent", runner="serve")
-    with pytest.raises(ValueError, match="ROADMAP A12"):
-        run_drill(sc, edges=edges, config=BFSConfig(grid=(2, 2)),
-                  weights=w, n=N, device="cpu")

@@ -513,3 +513,129 @@ def test_local_expand_and_hook_on_card(cuda_device, rng):
     assert torch.equal(got.level, want.level)
     assert torch.equal(got.pred, want.pred)
     assert got.edges_scanned == want.edges_scanned
+
+
+def _block_bytes(tensors) -> int:
+    """Bytes the caching allocator holds for these tensors' storages: the
+    sizes of their active blocks in `torch.cuda.memory_snapshot()`."""
+    ptrs = {t.untyped_storage().data_ptr() for t in tensors}
+    total = 0
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            addr = blk.get("address", addr)
+            if blk["state"] == "active_allocated" and addr in ptrs:
+                total += blk["size"]
+            addr += blk["size"]
+    return total
+
+
+def _edge_tensors(graph) -> list:
+    return [graph.edges, graph.edge_weights] + list(graph._edge_index.keys)
+
+
+@pytest.mark.gpu
+def test_dropping_the_edges_frees_their_memory(cuda_device):
+    """`ensure_csr` and `release_edges` drop the edge list, its weights and
+    the EdgeIndex: `memory_allocated` falls by exactly their blocks (and
+    ensure_csr adds exactly the CSR twin and its weights)."""
+    from repro_torch.api import BFSConfig, DistGraph
+
+    edges, w = CARD_VS_CPU.rmat_numpy(10, 16, 0)
+    for drop in ("ensure_csr", "release_edges"):
+        graph = DistGraph.from_edges(edges, BFSConfig(grid=(2, 2)),
+                                     weights=w, device=cuda_device)
+        graph.edge_index()
+        torch.cuda.synchronize()
+        freed = _block_bytes(_edge_tensors(graph))
+        assert freed >= edges.nbytes + w.nbytes
+        before = torch.cuda.memory_allocated()
+        getattr(graph, drop)()
+        torch.cuda.synchronize()
+        added = 0 if drop == "release_edges" else _block_bytes(
+            list(graph.csr.values()) + [graph.csr_weights])
+        assert graph.edges is None and graph._edge_index is None
+        assert torch.cuda.memory_allocated() - before == added - freed
+        del graph
+
+
+@pytest.mark.gpu
+def test_server_equals_direct_calls_on_card(cuda_device):
+    """The port's GraphServer on the card (SCALE 10, 2x2): top-down and
+    direction-optimised BFS batches with a pad slot, SSSP, two CC callers
+    and a multi-BFS, every value field equal to the direct session call,
+    through the kernels."""
+    import dataclasses
+
+    from repro_torch.api import BFSConfig, DistGraph
+    from repro_torch.serve import GraphServer, ServeConfig
+
+    edges, w = CARD_VS_CPU.rmat_numpy(10, 16, 0)
+    graph = DistGraph.from_edges(edges, BFSConfig(grid=(2, 2)), weights=w,
+                                 device=cuda_device)
+    deg = np.bincount(edges[0], minlength=1 << 10)
+    roots = [int(r) for r in np.flatnonzero(deg > 0)[:6]]
+    dcfg = BFSConfig(grid=(2, 2), direction=True, fold_codec="bitmap")
+    srv = GraphServer({"g": graph}, ServeConfig(max_batch=4))
+    srv.warm(("bfs", "sssp", "cc"))
+    K.expand_chunk.launches = 0
+    calls = ([("bfs", r, srv.bfs("g", r)) for r in roots[:5]]
+             + [("dir", r, srv.bfs("g", r, config=dcfg)) for r in roots[:2]]
+             + [("sssp", r, srv.sssp("g", r)) for r in roots[:2]]
+             + [("cc", None, srv.connected_components("g", tenant=t))
+                for t in ("a", "b")]
+             + [("mb", None, srv.multi_bfs("g", roots[:4], k=2))])
+    srv.start()
+    srv.drain()
+    srv.stop()
+    assert K.expand_chunk.launches > 0
+    sess, dsess = graph.session(), graph.session(dcfg)
+    direct = {"bfs": sess.bfs, "dir": dsess.bfs, "sssp": sess.sssp,
+              "cc": lambda _: sess.connected_components(),
+              "mb": lambda _: sess.multi_bfs(roots[:4], k=2)}
+    for kind, r, t in calls:
+        res = t.result(60)
+        assert res.ok, res.error
+        want = direct[kind](r)
+        for f in dataclasses.fields(want):
+            a, b = getattr(res.value, f.name), getattr(want, f.name)
+            if isinstance(b, torch.Tensor):
+                assert torch.equal(a, b), (kind, f.name)
+            else:
+                assert a == b, (kind, f.name)
+    padded = sorted((b.live, b.padded_to) for b in srv.accounting.batches
+                    if b.program == "bfs")
+    assert padded == [(1, 1), (2, 2), (4, 4)]
+
+
+@pytest.mark.gpu
+def test_library_builds_and_loads_once_under_two_threads(cuda_device,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """Two threads whose first launch loads one library into an empty
+    `_libs`, with nothing built yet: one builds, both get the same
+    handle."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    barrier = threading.Barrier(2)
+    got, errors = [], []
+
+    def first():
+        barrier.wait()
+        try:
+            got.append(build.library("bits"))
+        except Exception as exc:           # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=first) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and len(got) == 2
+    assert got[0] is got[1] is build._libs["bits"]
+    assert not list((tmp_path / "kernels").glob("*.tmp*"))

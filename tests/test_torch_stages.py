@@ -528,7 +528,9 @@ def test_bottomup_factories_equal_defaults(graph_data, direction):
                                  n=N)
     want_bfs = graph.session().bfs(roots)
     want_cc = graph.session().connected_components()
+    # fresh engines, and no cache entry bound to the old ones
     graph._engines.clear()
+    graph._compiled._entries.clear()
     sess = graph.session()
     sess.bfs(roots[0])
     sess.connected_components()
