@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's two session paths, its kernel-stage surface,
-its fault-tolerant level loop and its serving layer once on one NVIDIA GPU
-and check them.
+its fault-tolerant level loop, its serving layer and its process-group
+topology once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--scale 26] [--roots 64] [--td-roots 16]
                           [--batch 8] [--dir-batch 4] [--sssp-roots 4]
@@ -210,6 +210,31 @@ Phases, one line or more each on stdout:
                the butterfly (3 stages); BFS both ways, CC and multi-BFS
                under list and delta equal flat, their traces reading 3
                messages a processor a level (multi-BFS 0, as in JAX);
+  17. group    last, the SCALE 26 graph, its edge list and index and the
+               card's cache dropped (the edge list, weights and the stacked
+               outputs below written under build/phase17 after phase 16,
+               removed at the end): the port across a real process group
+               (`repro_torch.dist.multihost`, `GroupTopology`) on the one
+               card.  The gloo leg: 4 ranks of this script on cuda:0
+               (host-staged gloo, a file:// store), a 2x2 grid, one
+               processor each, every rank planning only its block from the
+               edge file it streams a piece at a time; under the flat and
+               the butterfly exchange: top-down `bfs` of phase 4's first 2
+               roots and `bfs(roots[:2])`, `connected_components()`,
+               `sssp` of phase 9's first root and the direction-optimised
+               (bitmap) `bfs` of phase 7's first root -- every output field
+               on every rank equal to the stacked session's.  The NCCL leg:
+               one rank holding the whole 2x2 grid, top-down `bfs` and CC
+               through the same group code path, equal likewise.  Printed:
+               each rank's wall time per query and its seconds inside
+               row_gather / col_all_to_all / psum_all (and the outputs'
+               fetch), timed by wrappers this script puts around the
+               topology's methods; each rank's launches (B1 and B2 > 0 on
+               every query that searches, B7 on the direction run), plan
+               seconds and peak memory; the group's top-down TEPS
+               (the slowest rank's time; four ranks sharing one card: a
+               correctness run, not a scaling figure).  A rank that fails,
+               differs or outlives the leg's deadline fails the phase;
   6. report    every phase's peak memory, the {"kernels": [...]} line,
                the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
@@ -228,6 +253,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2266,6 +2292,330 @@ def run_stages(torch, args, graph, roots, scalar, chunk, b1, kernels,
     phases.end("12 stages")
 
 
+# ----------------------------------------------------------------------------
+# Phase 17: the process group on the card
+# ----------------------------------------------------------------------------
+
+GROUP_WORLD = 4                  # phase 17: gloo ranks sharing the card
+GROUP_TIMEOUT_S = 600            # a leg's deadline (every rank killed after)
+GROUP_PIECE = 1 << 26            # edges copied to the disk file at a time
+
+
+def save_group_inputs(torch, gdir, edges, weights, n, refs) -> dict:
+    """Phase 17's inputs on disk: the edge list and weights as .npy files
+    every rank memory-maps, and the stacked outputs it is held to (each a
+    .npy, their scalars in meta.json).  refs: {name: tensor or int}.
+    Returns the meta dict (also written)."""
+    import numpy as np
+
+    os.makedirs(gdir, exist_ok=True)
+    t0 = time.perf_counter()
+    E = edges.shape[1]
+    em = np.lib.format.open_memmap(os.path.join(gdir, "edges.npy"),
+                                   mode="w+", dtype=np.int32, shape=(2, E))
+    wm = np.lib.format.open_memmap(os.path.join(gdir, "weights.npy"),
+                                   mode="w+", dtype=np.uint8, shape=(E,))
+    for a in range(0, E, GROUP_PIECE):
+        b = min(a + GROUP_PIECE, E)
+        em[:, a:b] = edges[:, a:b].cpu().numpy()
+        wm[a:b] = weights[a:b].cpu().numpy()
+    em.flush()
+    wm.flush()
+    del em, wm
+    meta = {"n": n, "edges": E, "ints": {}}
+    for name, v in refs.items():
+        if isinstance(v, torch.Tensor):
+            np.save(os.path.join(gdir, f"ref_{name}.npy"), v.cpu().numpy())
+        else:
+            meta["ints"][name] = v
+    with open(os.path.join(gdir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    meta["write_s"] = time.perf_counter() - t0
+    return meta
+
+
+class NpyFile:
+    """A .npy array on disk that the partition streams a slice at a time:
+    `x[row, a:b]` (2-D) or `x[a:b]` (1-D) reads just that run with one
+    read() into a fresh array -- several times faster than copying the
+    same run out of a memory map, page fault by page fault."""
+
+    def __init__(self, path):
+        import numpy as np
+        mm = np.load(path, mmap_mode="r")
+        self.path, self.shape, self.dtype = path, mm.shape, mm.dtype
+        self.offset = mm.offset
+        del mm
+
+    def __getitem__(self, idx):
+        import numpy as np
+        row, sl = idx if len(self.shape) == 2 else (0, idx)
+        a, b, _ = sl.indices(self.shape[-1])
+        start = self.offset + (row * self.shape[-1] + a) * self.dtype.itemsize
+        return np.fromfile(self.path, dtype=self.dtype, count=max(b - a, 0),
+                           offset=start)
+
+
+def launch_ranks(cmds, logs, timeout):
+    """Start every rank (stdout and stderr to its log file), wait for all
+    under one deadline, kill the rest when one fails or the deadline
+    passes.  Returns the exit codes."""
+    procs = []
+    # the ranks share one card: growable segments keep one rank's freed
+    # blocks from pinning memory the others need
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    for cmd, path in zip(cmds, logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f, env=env,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    return [p.returncode for p in procs]
+
+
+def run_group_leg(torch, gdir, leg, world, backend, timeout):
+    """One leg of phase 17: `world` ranks of this script on cuda:0 under
+    `backend`.  Returns every rank's result dict; raises (with the ranks'
+    logs' tails) unless every rank exits 0 in time."""
+    store = os.path.join(gdir, f"store-{leg}")
+    if os.path.exists(store):
+        os.remove(store)
+    cmds = [[sys.executable, os.path.abspath(__file__), "--group-rank",
+             str(k), "--group-world", str(world), "--group-backend",
+             backend, "--group-dir", gdir, "--group-leg", leg]
+            for k in range(world)]
+    logs = [os.path.join(gdir, f"{leg}-rank{k}.log") for k in range(world)]
+    t0 = time.perf_counter()
+    codes = launch_ranks(cmds, logs, timeout)
+    wall = time.perf_counter() - t0
+    if codes != [0] * world:
+        tails = []
+        for k, path in enumerate(logs):
+            with open(path) as f:
+                tails.append(f"--- {leg} rank {k} (exit {codes[k]}) ---\n"
+                             + f.read()[-4000:])
+        raise AssertionError(f"phase 17 leg {leg}: rank exit codes {codes} "
+                             f"after {wall:.1f} s (deadline {timeout} s)\n"
+                             + "\n".join(tails))
+    results = []
+    for k in range(world):
+        with open(os.path.join(gdir, f"{leg}-rank{k}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def run_group(torch, gdir, meta, report, phases):
+    """Phase 17, in the parent: the gloo leg (GROUP_WORLD ranks on the one
+    card, one processor each) and the NCCL leg (one rank, the whole grid),
+    every rank's outputs held to the stacked session's; each rank's wall
+    time per query, collective time, launches and peak memory printed."""
+    rep = {"write_s": meta["write_s"]}
+    ints = meta["ints"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[17 group] this process holds {held:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved on the card the ranks share")
+    for leg, world, backend in (("gloo", GROUP_WORLD, "gloo"),
+                                ("nccl", 1, "nccl")):
+        results, wall = run_group_leg(torch, gdir, leg, world, backend,
+                                      GROUP_TIMEOUT_S)
+        for res in results:
+            k = res["rank"]
+            log(f"[17 group] {leg} rank {k}/{world} block {res['block']}: "
+                f"planned in {res['plan_s']:.1f} s (CSR twin "
+                f"{res['csr_s']:.1f} s), "
+                f"{res['resident_bytes'] / 2**30:.2f} GiB resident after "
+                f"planning, peak memory {res['peak_bytes'] / 2**30:.2f} GiB")
+            for q in res["queries"]:
+                coll = ", ".join(f"{c} {s:.3f}" for c, s in
+                                 q["collective_s"].items())
+                log(f"[17 group] {leg} rank {k} {q['exchange']} "
+                    f"{q['query']}: {q['s']:.3f} s wall, equal to the "
+                    f"stacked session; in collectives {coll} s; launches "
+                    f"{q['launches']}")
+        # every rank's td scalar queries, slowest rank -> the group's time
+        teps = []
+        for key, m in (("bfs_r0", ints["m_r0"]), ("bfs_r1", ints["m_r1"])):
+            ts = [q["s"] for r in results for q in r["queries"]
+                  if q["query"] == key and q["exchange"] == "flat"]
+            if ts:
+                teps.append(m / max(ts))
+        if teps:
+            hm = len(teps) / sum(1 / t for t in teps)
+            note = (f"{world} ranks sharing one card over host-staged gloo: "
+                    "a correctness run, not a scaling figure") \
+                if backend == "gloo" else \
+                "one NCCL rank holding the whole grid on one card"
+            log(f"[17 group] {leg} top-down TEPS of the group "
+                f"{hm:.6e} ({note})")
+            rep[f"{leg}_teps"] = hm
+        rep[leg] = {"wall_s": wall, "ranks": results}
+        log(f"[17 group] {leg} leg: {world} ranks done in {wall:.1f} s")
+    report["group"] = rep
+    phases.end("17 group")
+
+
+def group_rank_main(args) -> int:
+    """A rank of phase 17 (`--group-rank`): join the leg's group on
+    cuda:0, plan this rank's blocks from the memory-mapped edge list, run
+    the leg's queries under each exchange, hold every output to the
+    stacked session's (read from disk), write the rank's measurements."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.api import BFSConfig, DistGraph
+    from repro_torch.dist import multihost
+    from repro_torch.dist.topology import GroupTopology
+
+    gdir, leg, k = args.group_dir, args.group_leg, args.group_rank
+    with open(os.path.join(gdir, "meta.json")) as f:
+        meta = json.load(f)
+    ints, n = meta["ints"], meta["n"]
+    R, C = (int(x) for x in args.grid.lower().split("x"))
+    multihost.initialize("file://" + os.path.join(gdir, f"store-{leg}"),
+                         args.group_world, k, device="cuda:0",
+                         backend=args.group_backend,
+                         timeout_s=GROUP_TIMEOUT_S)
+    mesh = multihost.global_mesh((R, C))
+    torch.cuda.reset_peak_memory_stats()
+
+    # the timer around the topology's three collectives (and the fetch of
+    # the outputs), the card synchronised on both sides
+    spent = {"row_gather": 0.0, "col_all_to_all": 0.0, "psum_all": 0.0,
+             "fetch": 0.0}
+    for name in spent:
+        fn = getattr(GroupTopology, name)
+
+        def timed_call(self, *a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            spent[_name] += time.perf_counter() - t0
+            return out
+        setattr(GroupTopology, name, timed_call)
+
+    edges = NpyFile(os.path.join(gdir, "edges.npy"))
+    weights = NpyFile(os.path.join(gdir, "weights.npy"))
+    t0 = time.perf_counter()
+    graph = DistGraph.from_edges(
+        edges, BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk), mesh=mesh,
+        n=n, weights=weights)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    # the ranks share the card: hand the partition's freed temporaries back
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+
+    def ref(name):
+        return np.load(os.path.join(gdir, f"ref_{name}.npy"), mmap_mode="r")
+
+    def check(what, got, want):
+        g = got.cpu().numpy() if isinstance(got, torch.Tensor) \
+            else np.asarray(got)
+        if g.shape != want.shape or not np.array_equal(g, want):
+            raise AssertionError(f"rank {k} {what} differs from the stacked "
+                                 f"session's")
+
+    queries = []
+
+    def run(name, exchange, fn, checks, need=()):
+        zero_counts()
+        for c in spent:
+            spent[c] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for field, want in checks(out):
+            check(f"{exchange} {name} {field}", field_of(out, field), want)
+        counts = {c: v for c, v in read_counts().items() if v}
+        require_launched(read_counts(), need, f"rank {k}'s {name}")
+        queries.append({"query": name, "exchange": exchange, "s": dt,
+                        "collective_s": dict(spent), "launches": counts})
+        return out
+
+    def field_of(out, field):
+        if "[" in field:
+            f, b = field[:-1].split("[")
+            return getattr(out, f)[int(b)]
+        return getattr(out, field)
+
+    def bfs_checks(tag, b=None):
+        def checks(out):
+            sfx = "" if b is None else f"[{b}]"
+            return [(f"level{sfx}", ref(f"{tag}_level")),
+                    (f"pred{sfx}", ref(f"{tag}_pred")),
+                    (f"n_levels{sfx}", np.asarray(ints[f"{tag}_n_levels"])),
+                    (f"edges_scanned{sfx}",
+                     np.asarray(ints[f"{tag}_edges"]))]
+        return checks
+
+    r0, r1 = ints["root0"], ints["root1"]
+    b1b2 = ("expand_chunk", "compact_rows")
+    exchanges = ("flat", "butterfly") if leg == "gloo" else ("flat",)
+    csr_s = 0.0
+    # the first search of a group pays for its transports' set-up (NCCL
+    # builds a communicator a group at its first collective): a warm-up
+    warm = graph.session(BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk))
+    run("warm-up", "flat", lambda: warm.bfs(r1), bfs_checks("td1"), b1b2)
+    for ex in exchanges:
+        cfg = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
+                        exchange=ex)
+        s = graph.session(cfg)
+        run("bfs_r0", ex, lambda: s.bfs(r0), bfs_checks("td0"), b1b2)
+        if leg == "gloo":
+            run("bfs_r1", ex, lambda: s.bfs(r1), bfs_checks("td1"), b1b2)
+            run("bfs_batch", ex, lambda: s.bfs([r0, r1]),
+                lambda o: bfs_checks("td0", 0)(o) + bfs_checks("td1", 1)(o),
+                b1b2)
+        run("cc", ex, s.connected_components,
+            lambda o: [("labels", ref("cc_labels")),
+                       ("n_iters", np.asarray(ints["cc_iters"])),
+                       ("edges_scanned", np.asarray(ints["cc_edges"]))])
+        if leg != "gloo":
+            continue
+        run("sssp", ex, lambda: s.sssp(ints["sssp_root"]),
+            lambda o: [("dist", ref("sssp_dist")),
+                       ("n_iters", np.asarray(ints["sssp_iters"])),
+                       ("edges_scanned", np.asarray(ints["sssp_edges"]))])
+        t0 = time.perf_counter()
+        ds = graph.session(dataclasses.replace(
+            cfg, direction=True, fold_codec="bitmap"))
+        torch.cuda.synchronize()
+        csr_s += time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        run("bfs_dir", ex, lambda: ds.bfs(ints["dir_root"]),
+            lambda o: bfs_checks("dir")(o)
+            + [("directions", ref("dir_directions"))],
+            b1b2 + ("bottomup_chunk",))
+    res = {"rank": k, "world": args.group_world, "backend":
+           args.group_backend,
+           "block": [mesh.i0, mesh.j0, mesh.Rl, mesh.Cl], "plan_s": plan_s,
+           "resident_bytes": resident, "csr_s": csr_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "queries": queries}
+    with open(os.path.join(gdir, f"{leg}-rank{k}.json"), "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+    print(f"rank {k} done", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=26)
@@ -2292,6 +2642,11 @@ def main() -> int:
                     help="R-MAT SCALE of the card-against-CPU phase")
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    # phase 17's ranks: this script started again by the phase itself
+    for opt in ("--group-rank", "--group-world"):
+        ap.add_argument(opt, type=int, default=None, help=argparse.SUPPRESS)
+    for opt in ("--group-backend", "--group-dir", "--group-leg"):
+        ap.add_argument(opt, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -2305,6 +2660,8 @@ def main() -> int:
         log("FAIL: torch.cuda.is_available() is False; this script "
             "measures the port on an NVIDIA GPU")
         return 1
+    if args.group_rank is not None:
+        return group_rank_main(args)
 
     from repro_torch.api import BFSConfig, DistGraph
     from repro_torch.core import frontier as F
@@ -2455,7 +2812,7 @@ def main() -> int:
     K.expand_chunk.launches = 0
     KF.compact_rows.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    times, teps, scalar = [], [], []
+    times, teps, scalar, comp_edges = [], [], [], []
     keep = max(args.batch, TD_EQUAL_ROOTS, args.sssp_roots, SERVE_TD_ROOTS)
     reached = []             # per root: (root, reached count, smallest id)
     best_level = torch.full((n,), I32_MAX, dtype=torch.int32, device=dev)
@@ -2473,6 +2830,7 @@ def main() -> int:
         val_s = time.perf_counter() - t1
         times.append(dt)
         teps.append(m / dt)
+        comp_edges.append(m)
         if len(scalar) < keep:
             scalar.append((out.level.cpu(), out.pred.cpu(),
                            int(out.n_levels), out.edges_scanned))
@@ -2876,6 +3234,26 @@ def main() -> int:
            phases)
     run_serve(torch, args, graph, td_roots, roots, scalar, dscalar, times,
               dtimes, dir_config, vals, report, phases)
+    # phase 17's inputs to disk while the edge list and weights are here
+    gdir = os.path.join(HERE, "build", "phase17")
+    (td0, td1), dref = scalar[:2], dscalar[0]
+    cc_ref, sssp_ref = vals["cc"], vals["sssp"][0]
+    group_meta = save_group_inputs(torch, gdir, edges, weights, n, {
+        "td0_level": td0[0], "td0_pred": td0[1], "td0_n_levels": td0[2],
+        "td0_edges": td0[3], "td1_level": td1[0], "td1_pred": td1[1],
+        "td1_n_levels": td1[2], "td1_edges": td1[3],
+        "dir_level": dref[0], "dir_pred": dref[1], "dir_n_levels": dref[2],
+        "dir_edges": dref[3], "dir_directions": dref[4],
+        "cc_labels": cc_ref[0], "cc_iters": cc_ref[1],
+        "cc_edges": cc_ref[2], "sssp_dist": sssp_ref[0],
+        "sssp_iters": sssp_ref[1], "sssp_edges": sssp_ref[2],
+        "root0": td_roots[0], "root1": td_roots[1], "dir_root": roots[0],
+        "sssp_root": vals["sssp_roots"][0], "m_r0": comp_edges[0],
+        "m_r1": comp_edges[1]})
+    del td0, td1, dref, cc_ref, sssp_ref
+    log(f"[17 group] the edge list, weights and the stacked outputs phase "
+        f"17 is held to written under build/phase17 in "
+        f"{group_meta['write_s']:.1f} s")
     # phase 3b's arguments are views of the graph's CSC: drop them with it
     del graph, weights, sess, dsess, eng, deng, cumul, front, ftot, \
         col_off, row_idx, words
@@ -2893,6 +3271,15 @@ def main() -> int:
     report["edges_index_bytes"] = freed
     torch.cuda.empty_cache()
     run_delta(torch, dev, args, kernels, report, phases)
+    # -- 17. the process group: the card's memory and the script's host
+    # copies of the outputs dropped, only the references on disk kept
+    del scalar, dscalar
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        run_group(torch, gdir, group_meta, report, phases)
+    finally:
+        shutil.rmtree(gdir, ignore_errors=True)
     report["kernels"] = kernels
     report["phase_s"] = phases.seconds
     report["script_s"] = time.perf_counter() - t_script

@@ -1,11 +1,12 @@
 """BFS levels/preds as a `FrontierProgram` (DESIGN.md sec. 6 + 8), the port
-of `repro/algos/bfs.py` on the stacked grid.
+of `repro/algos/bfs.py`.
 
 The paper's algorithm -- expand exchange, CSC scan, fold, frontier update,
 deferred-predecessor resolution -- with the same ops in the same order as
 the JAX program, so levels, preds, `n_levels` and `edges_scanned` are
-bit-identical to it.  The local phases loop over the grid's processors;
-the exchanges are the stacked topology's tensor collectives.
+bit-identical to it.  The local phases loop over the processors of the
+topology's block; the exchanges are the topology's collectives (tensor
+operations on the stacked grid, transfers across a process group).
 """
 from __future__ import annotations
 
@@ -23,23 +24,29 @@ from repro_torch.core.types import BFSOutput, BFSState, Grid2D
 from repro_torch.dist import exchange as X
 
 
-def init_state(root: int, *, grid: Grid2D, device) -> BFSState:
-    """Stacked state with `root` on its owner (levels / preds / visited
-    carry the trailing sink slot, `core.types`)."""
-    R, C, S = grid.R, grid.C, grid.S
+def init_state(root: int, *, grid: Grid2D, device, local=None) -> BFSState:
+    """State of the block `local` (a `topology.LocalBlock`; None = the
+    whole grid) with `root` on its owner, if the block holds it (levels /
+    preds / visited carry the trailing sink slot, `core.types`)."""
+    S = grid.S
+    Rl, Cl = (grid.R, grid.C) if local is None else (local.Rl, local.Cl)
     nrl = grid.n_rows_local
-    level = torch.full((R, C, nrl + 1), -1, dtype=torch.int32, device=device)
-    pred = torch.full((R, C, nrl + 1), -1, dtype=torch.int32, device=device)
-    visited = torch.zeros((R, C, nrl + 1), dtype=torch.bool, device=device)
-    front = torch.full((R, C, S), -1, dtype=torch.int32, device=device)
-    cnt = torch.zeros((R, C), dtype=torch.int32, device=device)
+    level = torch.full((Rl, Cl, nrl + 1), -1, dtype=torch.int32,
+                       device=device)
+    pred = torch.full((Rl, Cl, nrl + 1), -1, dtype=torch.int32,
+                      device=device)
+    visited = torch.zeros((Rl, Cl, nrl + 1), dtype=torch.bool, device=device)
+    front = torch.full((Rl, Cl, S), -1, dtype=torch.int32, device=device)
+    cnt = torch.zeros((Rl, Cl), dtype=torch.int32, device=device)
     oi, oj = owner_of(root, grid)
-    lr = local_row(root, grid)
-    level[oi, oj, lr] = 0
-    pred[oi, oj, lr] = root
-    visited[oi, oj, lr] = True
-    front[oi, oj, 0] = local_col(root, grid)
-    cnt[oi, oj] = 1
+    if local is None or local.owns(oi, oj):
+        li, lj = (oi, oj) if local is None else local.loc(oi, oj)
+        lr = local_row(root, grid)
+        level[li, lj, lr] = 0
+        pred[li, lj, lr] = root
+        visited[li, lj, lr] = True
+        front[li, lj, 0] = local_col(root, grid)
+        cnt[li, lj] = 1
     return BFSState(level=level, pred=pred, visited=visited, front=front,
                     front_cnt=cnt, lvl=1)
 
@@ -86,27 +93,32 @@ def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
     the strategy's per-exchange message count and `folded` the entries
     routed to remote owners (the own column never travels)."""
     topo, grid = engine.topo, engine.grid
-    R, C, S = grid.R, grid.C, grid.S
+    C, S = grid.C, grid.S
+    blk = topo.local
     dev = st.front.device
-    dst = torch.empty((R, C, C, S), dtype=torch.int32, device=dev)
-    dst_cnt = torch.empty((R, C, C), dtype=torch.int32, device=dev)
+    dst = torch.empty((blk.Rl, blk.Cl, C, S), dtype=torch.int32, device=dev)
+    dst_cnt = torch.empty((blk.Rl, blk.Cl, C), dtype=torch.int32,
+                          device=dev)
     for p, (i, j) in enumerate(topo.coords()):
+        li, lj = blk.loc(i, j)
         # frontier expansion (local CSC column scan)
         ex = F.expand_frontier(
-            graph.col_off[i, j], graph.row_idx[i, j], st.visited[i, j],
-            st.level[i, j], st.pred[i, j], plan.all_front[i, j],
-            plan.front_total[i, j], st.lvl, grid=grid, i=i, j=j,
-            edge_chunk=engine.edge_chunk, expand_fn=engine.expand_fn,
-            dedup=engine.dedup, plan=(plan.cumul[p], block_edges[p]))
-        dst[i, j] = ex.dst
-        dst_cnt[i, j] = ex.dst_cnt
+            graph.col_off[li, lj], graph.row_idx[li, lj],
+            st.visited[li, lj], st.level[li, lj], st.pred[li, lj],
+            plan.all_front[li, lj], plan.front_total[li, lj], st.lvl,
+            grid=grid, i=i, j=j, edge_chunk=engine.edge_chunk,
+            expand_fn=engine.expand_fn, dedup=engine.dedup,
+            plan=(plan.cumul[p], block_edges[p]))
+        dst[li, lj] = ex.dst
+        dst_cnt[li, lj] = ex.dst_cnt
 
     # own-column vertices go straight to the frontier (lines 15-16)
-    own = [(dst[i, j, j].clone(), dst_cnt[i, j, j].clone())
-           for i, j in topo.coords()]
+    own = []
     for i, j in topo.coords():
-        dst[i, j, j] = -1
-        dst_cnt[i, j, j] = 0
+        li, lj = blk.loc(i, j)
+        own.append((dst[li, lj, j].clone(), dst_cnt[li, lj, j].clone()))
+        dst[li, lj, j] = -1
+        dst_cnt[li, lj, j] = 0
 
     # fold exchange: route discoveries to their owners (same grid row)
     int_verts, int_cnt = engine.codec.fold(dst, dst_cnt, topo=topo)
@@ -123,9 +135,10 @@ def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
     front_cnt = torch.empty_like(st.front_cnt)
     arange_s = torch.arange(S, dtype=torch.int32, device=dev)
     for p, (i, j) in enumerate(topo.coords()):
-        up = F.update_frontier(int_verts[i, j], int_cnt[i, j],
-                               st.visited[i, j], st.level[i, j],
-                               st.pred[i, j], st.lvl, grid=grid, i=i, j=j)
+        li, lj = blk.loc(i, j)
+        up = F.update_frontier(int_verts[li, lj], int_cnt[li, lj],
+                               st.visited[li, lj], st.level[li, lj],
+                               st.pred[li, lj], st.lvl, grid=grid, i=i, j=j)
         own_rows, own_cnt = own[p]
         own_cols = row2col(own_rows, i, j, grid)
         nf = torch.full((S,), -1, dtype=torch.int32, device=dev)
@@ -133,7 +146,7 @@ def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
         nf, nc = F.append_padded(nf, nc, own_cols, arange_s < own_cnt)
         nf, nc = F.append_padded(nf, nc, up.new_front,
                                  arange_s < up.new_cnt)
-        front[i, j], front_cnt[i, j] = canonical_front(nf, nc)
+        front[li, lj], front_cnt[li, lj] = canonical_front(nf, nc)
     return BFSState(level=st.level, pred=st.pred, visited=st.visited,
                     front=front, front_cnt=front_cnt, lvl=st.lvl + 1), aux
 
@@ -144,7 +157,8 @@ class BFSLevelsProgram(FrontierProgram):
     codec_hint = "list"
 
     def init(self, engine, graph, root):
-        return init_state(root, grid=engine.grid, device=engine.device)
+        return init_state(root, grid=engine.grid, device=engine.device,
+                          local=engine.topo.local)
 
     def plan(self, engine, graph, st):
         return plan_level(engine, graph, st)
@@ -164,12 +178,13 @@ class BFSLevelsProgram(FrontierProgram):
 
     def finalize(self, engine, st):
         """Owned levels and resolved preds in global vertex order (block
-        b = j*R + i, i.e. plain global ids), and the level count."""
-        grid = engine.grid
-        pred = X.resolve_preds(st.pred[..., :grid.n_rows_local],
-                               topo=engine.topo)
-        return (PR.global_order(PR.owned_rows(st.level, grid)),
-                PR.global_order(pred), st.lvl)
+        b = j*R + i, i.e. plain global ids), and the level count; across a
+        process group every rank fetches the whole grid's."""
+        grid, topo = engine.grid, engine.topo
+        pred = X.resolve_preds(st.pred[..., :grid.n_rows_local], topo=topo)
+        level = PR.owned_rows(st.level, grid, topo.local.j0)
+        return (PR.global_order(level, topo), PR.global_order(pred, topo),
+                st.lvl)
 
     def level_count(self, st) -> int:
         return st.lvl

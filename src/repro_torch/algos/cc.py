@@ -1,5 +1,5 @@
 """Connected components by min-label propagation (DESIGN.md sec. 8), the
-port of `repro/algos/cc.py` on the stacked grid.
+port of `repro/algos/cc.py`.
 
 Every vertex starts labelled with its own global id and in the frontier;
 each level propagates labels along edges and keeps the minimum.  At the
@@ -38,18 +38,22 @@ class ConnectedComponentsProgram(FrontierProgram):
 
     def init(self, engine, graph, arg):
         grid, dev = engine.grid, engine.device
-        R, C, S = grid.R, grid.C, grid.S
+        R, S = grid.R, grid.S
+        blk = engine.topo.local
+        Rl, Cl = blk.Rl, blk.Cl
         t = torch.arange(S, dtype=torch.int32, device=dev)
-        i = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1)
-        j = torch.arange(C, dtype=torch.int32, device=dev).view(1, C, 1)
+        i = blk.rows(dev).view(Rl, 1, 1)
+        j = blk.cols(dev).view(1, Cl, 1)
         gids = (j * R + i) * S + t                     # owned block ids
-        val = torch.full((R, C, grid.n_rows_local), PR.I32_MAX,
+        val = torch.full((Rl, Cl, grid.n_rows_local), PR.I32_MAX,
                          dtype=torch.int32, device=dev)
-        PR.set_owned_rows(val, gids, grid)
+        PR.set_owned_rows(val, gids, grid, blk.j0)
         # every owned vertex starts active; ROW2COL of owned rows
-        return ValueState(val=val, front=(i * S + t).expand(R, C, S).clone(),
+        return ValueState(val=val,
+                          front=(i * S + t).expand(Rl, Cl, S).clone(),
                           payload=gids,
-                          front_cnt=torch.full((R, C), S, dtype=torch.int32,
+                          front_cnt=torch.full((Rl, Cl), S,
+                                               dtype=torch.int32,
                                                device=dev), it=1)
 
     def plan(self, engine, graph, st):
@@ -83,7 +87,9 @@ class ConnectedComponentsProgram(FrontierProgram):
                                      pad="gid", ops=engine.fold_ops)
 
     def finalize(self, engine, st):
-        return PR.global_order(PR.owned_rows(st.val, engine.grid)), st.it
+        topo = engine.topo
+        owned = PR.owned_rows(st.val, engine.grid, topo.local.j0)
+        return PR.global_order(owned, topo), st.it
 
     def assemble(self, engine, outs, B):
         labels, it, scanned = outs[0]

@@ -1,5 +1,5 @@
 """Direction-optimised traversal (DESIGN.md sec. 11; Beamer et al., Buluc &
-Madduri), the port of `repro/algos/direction.py` on the stacked grid.
+Madduri), the port of `repro/algos/direction.py`.
 
 `DirectionProgram` wraps a `FrontierProgram` whose step has a bottom-up
 twin: instead of scanning the frontier's out-edges (CSC), every unvisited
@@ -20,7 +20,10 @@ The JAX program decides inside its compiled loop.  Here the decision is
 made on the host: the level's first host read gives the global frontier
 size (the plan's counts[0], the JAX `prev_total`), the step then plans the
 chosen direction's workload and reads its per-processor edge totals -- a
-second host read on every level of a direction-optimised search.
+second host read on every level of a direction-optimised search.  Both
+reads are group-wide where a decision hangs on them: the frontier size is
+the topology's `psum_all`, so every rank of a process group takes the same
+direction and issues the same collectives.
 """
 from __future__ import annotations
 
@@ -61,12 +64,12 @@ class FrontPlan:
 class PullPlan:
     """A bottom-up value level's frontier bitmap, dense payload and scan
     workload, before the host read."""
-    all_words: torch.Tensor    # (C, R * W) int32 frontier bitmap per column
-    dense_pay: torch.Tensor    # (C, n_cols_local) int32 payload per column
+    all_words: torch.Tensor    # (Cl, R * W) int32 frontier bitmap per column
+    dense_pay: torch.Tensor    # (Cl, n_cols_local) int32 payload per column
     cumul: list                # per processor: (nrl + 1,) int32 masked cumsum
     total: list                # per processor: () int32 live edges
-    counts: torch.Tensor       # (1 + P,) int64: global frontier, then every
-                               #   processor's edges to scan
+    counts: torch.Tensor       # (1 + Pl,) int64: global frontier, then the
+                               #   block's processors' edges to scan
 
 
 def make_pull_scan(engine, row_off, col_idx, *, relax, csr_edge_vals=None,
@@ -80,26 +83,28 @@ def make_pull_scan(engine, row_off, col_idx, *, relax, csr_edge_vals=None,
     row_off, col_idx, csr_edge_vals: the stacked CSR twin and its
     CSR-ordered edge values.  skip_fn: state -> (R, C, nrl) bool; skipped
     rows add no edges to the workload (multi-source BFS skips visited rows:
-    JAX's `row_mask_fn`, negated).  Returns (plan_fn(state) -> PullPlan, scan(state, plan,
-    block_edges) -> cand (R, C, nrl)), the scan half for
-    `algos.program.make_value_step`."""
+    JAX's `row_mask_fn`, negated).  Returns (plan_fn(state) -> PullPlan,
+    scan(state, plan, block_edges) -> cand (Rl, Cl, nrl)), the scan half
+    for `algos.program.make_value_step`."""
     topo, grid = engine.topo, engine.grid
-    R, C, S = grid.R, grid.C, grid.S
+    S = grid.S
     nrl, ncl = grid.n_rows_local, grid.n_cols_local
+    blk = topo.local
     chunk = engine.edge_chunk
     dev = engine.device
 
     def plan(st):
         valid = st.front >= 0
-        i_s = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1) * S
+        i_s = blk.rows(dev).view(-1, 1, 1) * S
         slot = torch.arange(S, dtype=torch.int32, device=dev)
         # a pad adds 0 at its own slot, never over a valid entry's payload
-        own_pay = torch.zeros((R, C, S), dtype=torch.int32, device=dev)
+        own_pay = torch.zeros((blk.Rl, blk.Cl, S), dtype=torch.int32,
+                              device=dev)
         own_pay.scatter_add_(2, torch.where(valid, st.front - i_s,
                                             slot).long(),
                              torch.where(valid, st.payload, 0))
         # column j's row-gather: grid row r's block at cols r*S ..
-        dense_pay = own_pay.transpose(0, 1).reshape(C, ncl)
+        dense_pay = topo.row_gather(own_pay)[0].reshape(blk.Cl, ncl)
         cumul, totals, counts = pull_workload(
             topo, row_off, st.front_cnt,
             skip=None if skip_fn is None else skip_fn(st))
@@ -108,27 +113,29 @@ def make_pull_scan(engine, row_off, col_idx, *, relax, csr_edge_vals=None,
 
     def scan(st, plan, block_edges):
         bu_fn = engine.value_bottomup_fn
-        cand = torch.full((R, C, nrl), I32_MAX, dtype=torch.int32,
+        cand = torch.full((blk.Rl, blk.Cl, nrl), I32_MAX, dtype=torch.int32,
                           device=dev)
         lanes = torch.arange(chunk, dtype=torch.int32, device=dev)
         slots = PR.own_slots(chunk, nrl, dev)
         for p, (i, j) in enumerate(topo.coords()):
-            words, pay_j = plan.all_words[j], plan.dense_pay[j]
+            li, lj = blk.loc(i, j)
+            words, pay_j = plan.all_words[lj], plan.dense_pay[lj]
             cumul, total = plan.cumul[p], plan.total[p]
             for start in range(0, block_edges[p], chunk):
                 if bu_fn is None:
                     r, pay, addr, hit = F.reference_bottomup_values_chunk(
-                        start + lanes, cumul, total, row_off[i, j],
-                        col_idx[i, j], words, pay_j, block=S)
+                        start + lanes, cumul, total, row_off[li, lj],
+                        col_idx[li, lj], words, pay_j, block=S)
                 else:
                     r, pay, addr, hit = bu_fn(start, chunk, cumul, total,
-                                              row_off[i, j], col_idx[i, j],
-                                              words, pay_j, block=S)
+                                              row_off[li, lj],
+                                              col_idx[li, lj], words, pay_j,
+                                              block=S)
                 w = None if csr_edge_vals is None \
-                    else csr_edge_vals[i, j][addr]
+                    else csr_edge_vals[li, lj][addr]
                 val = torch.where(hit, relax(pay, w), I32_MAX)
                 # a miss adds min's identity at its own slot
-                cand[i, j].scatter_reduce_(
+                cand[li, lj].scatter_reduce_(
                     0, torch.where(hit, r.long(), slots), val, "amin")
         return cand
 
@@ -140,41 +147,46 @@ def make_pull_scan(engine, row_off, col_idx, *, relax, csr_edge_vals=None,
 # ----------------------------------------------------------------------------
 
 def frontier_words(topo, front):
-    """Own (R, C, S) frontier col ids -> every processor column's
-    row-gathered blocked bitmap, (C, R * W) int32.
+    """Own (Rl, Cl, S) frontier col ids -> every block column's
+    row-gathered blocked bitmap, (Cl, R * W) int32.
 
     Processor (i, j)'s frontier entries lie in [i*S, (i+1)*S) (ROW2COL of
-    owned rows), so its own block packs to exactly S bits; the gather stacks
-    grid-row r's words at block r -- `test_bit_blocks`'s addressing of local
-    col c (block c // S, bit c % S).  Every grid row of a column receives
-    the same gather."""
-    R, C, S = topo.grid.R, topo.grid.C, topo.grid.S
+    owned rows), so its own block packs to exactly S bits; the row gather
+    (`topo.row_gather`) stacks grid-row r's words at block r --
+    `test_bit_blocks`'s addressing of local col c (block c // S, bit
+    c % S).  Every grid row of a column receives the same gather."""
+    R, S = topo.grid.R, topo.grid.S
+    blk = topo.local
     W = (S + 31) // 32
     dev = front.device
     valid = front >= 0
-    i = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1)
+    i = blk.rows(dev).view(-1, 1, 1)
     slot = torch.arange(S, dtype=torch.int32, device=dev)
     # pads set no bit and add 0 to their own slot's word (no shared sink)
     t = torch.where(valid, front - i * S, slot)
-    base = torch.arange(R * C, dtype=torch.int32,
-                        device=dev).view(R, C, 1) * (W * 32)
-    words = torch.zeros(R * C * W, dtype=torch.int32, device=dev)
+    P = blk.Rl * blk.Cl
+    base = torch.arange(P, dtype=torch.int32,
+                        device=dev).view(blk.Rl, blk.Cl, 1) * (W * 32)
+    words = torch.zeros(P * W, dtype=torch.int32, device=dev)
     F.set_bits(words, (base + t).reshape(-1), valid.reshape(-1))
-    return words.view(R, C, W).transpose(0, 1).reshape(C, R * W)
+    gathered = topo.row_gather(words.view(blk.Rl, blk.Cl, W))[0]
+    return gathered.reshape(blk.Cl, R * W)
 
 
 def pull_workload(topo, row_off, front_cnt, skip=None):
     """Every processor's bottom-up scan workload: the exclusive cumsum of
-    its rows' CSR degrees, a row where `skip` (R, C, nrl[+ 1]) is set
+    its rows' CSR degrees, a row where `skip` (Rl, Cl, nrl[+ 1]) is set
     counting 0 edges.  Returns (per processor (nrl + 1,) int32 cumul, per
-    processor () int32 total, the (1 + P,) int64 counts: the global
-    frontier size, then every processor's edges to scan)."""
+    processor () int32 total, the (1 + Pl,) int64 counts: the global
+    frontier size, then the block's processors' edges to scan)."""
     nrl = topo.grid.n_rows_local
+    loc = topo.local.loc
     cumul, totals = [], []
     for i, j in topo.coords():
-        deg = torch.diff(row_off[i, j])
+        li, lj = loc(i, j)
+        deg = torch.diff(row_off[li, lj])
         if skip is not None:
-            deg = torch.where(skip[i, j, :nrl], 0, deg)
+            deg = torch.where(skip[li, lj, :nrl], 0, deg)
         c = F.exclusive_cumsum(deg)
         cumul.append(c)
         totals.append(c[nrl])
@@ -186,11 +198,11 @@ def pull_workload(topo, row_off, front_cnt, skip=None):
 class BottomUpPlan:
     """A bottom-up level's frontier bitmap and scan workload, before the
     host read."""
-    all_words: torch.Tensor    # (C, R * W) int32 frontier bitmap per column
+    all_words: torch.Tensor    # (Cl, R * W) int32 frontier bitmap per column
     cumul: list                # per processor: (nrl + 1,) int32 masked cumsum
     total: list                # per processor: () int32 live edges
-    counts: torch.Tensor       # (1 + P,) int64: global frontier, then every
-                               #   processor's masked edges to scan
+    counts: torch.Tensor       # (1 + Pl,) int64: global frontier, then the
+                               #   block's processors' masked edges to scan
 
 
 def plan_bottomup(engine, row_off, st: BFSState) -> BottomUpPlan:
@@ -215,36 +227,41 @@ def bottomup_step(engine, row_off, col_idx, st: BFSState,
     Returns (state', aux): the telemetry aux of a value fold, direction 1
     (None with telemetry off)."""
     topo, grid = engine.topo, engine.grid
-    R, C, S = grid.R, grid.C, grid.S
+    C, S = grid.C, grid.S
     nrl, ncl = grid.n_rows_local, grid.n_cols_local
+    blk = topo.local
+    Rl, Cl = blk.Rl, blk.Cl
     dev = st.front.device
     chunk = engine.edge_chunk
     bu_fn = engine.bottomup_fn
-    cols = torch.arange(C, device=dev)
-    vis_owned_prev = PR.owned_rows(st.visited, grid)
-    found = torch.empty((R, C, nrl), dtype=torch.bool, device=dev)
-    parent_g = torch.empty((R, C, nrl), dtype=torch.int32, device=dev)
+    lj_all = torch.arange(Cl, device=dev)
+    cols = blk.j0 + lj_all                    # the block's grid columns
+    vis_owned_prev = PR.owned_rows(st.visited, grid, blk.j0)
+    found = torch.empty((Rl, Cl, nrl), dtype=torch.bool, device=dev)
+    parent_g = torch.empty((Rl, Cl, nrl), dtype=torch.int32, device=dev)
     slots = torch.arange(chunk, dtype=torch.int32, device=dev)
     for p, (i, j) in enumerate(topo.coords()):
-        words = plan.all_words[j]
+        li, lj = blk.loc(i, j)
+        words = plan.all_words[lj]
         cumul, total = plan.cumul[p], plan.total[p]
         best = torch.full((nrl,), I32_MAX, dtype=torch.int32, device=dev)
         for start in range(0, block_edges[p], chunk):
             if bu_fn is None:
                 r, c, hit = F.reference_bottomup_chunk(
-                    start + slots, cumul, total, row_off[i, j], col_idx[i, j],
-                    words, block=S)
+                    start + slots, cumul, total, row_off[li, lj],
+                    col_idx[li, lj], words, block=S)
             else:
-                r, c, hit = bu_fn(start, chunk, cumul, total, row_off[i, j],
-                                  col_idx[i, j], words, block=S)
+                r, c, hit = bu_fn(start, chunk, cumul, total,
+                                  row_off[li, lj], col_idx[li, lj], words,
+                                  block=S)
             # a miss adds min's identity at its own row, not at a sink slot
             best.scatter_reduce_(0, r.long(), torch.where(hit, c, I32_MAX),
                                  "amin")
         f = best < I32_MAX                    # rows with a frontier parent
-        found[i, j] = f
-        parent_g[i, j] = torch.where(f, j * ncl + torch.where(f, best, 0),
-                                     I32_MAX)
-        st.visited[i, j, :nrl] |= f           # the send-suppression cache
+        found[li, lj] = f
+        parent_g[li, lj] = torch.where(f, j * ncl + torch.where(f, best, 0),
+                                       I32_MAX)
+        st.visited[li, lj, :nrl] |= f         # the send-suppression cache
 
     # value-fold (vertex, parent) to the owners: the exchange the value
     # programs use, so every codec works here
@@ -254,41 +271,45 @@ def bottomup_step(engine, row_off, col_idx, st: BFSState,
     aux = PR.value_fold_aux(engine, plan, cnt, 1) if engine.telemetry \
         else None
 
-    # dense (R, C, C, S) per-sender parent table of each owned block;
+    # dense (Rl, Cl, C, S) per-sender parent table of each owned block;
     # senders propose each row at most once, and a pad adds I32_MAX at its
     # own slot
-    jj = cols.view(1, C, 1, 1).to(torch.int32)
+    jj = cols.view(1, Cl, 1, 1).to(torch.int32)
     slot = torch.arange(S, dtype=torch.int32, device=dev)
     got = ri >= 0
     tt = torch.where(got, ri - jj * S, slot)
-    dense = torch.full((R, C, C, S), I32_MAX, dtype=torch.int32, device=dev)
+    dense = torch.full((Rl, Cl, C, S), I32_MAX, dtype=torch.int32,
+                       device=dev)
     dense.scatter_reduce_(3, tt.long(), torch.where(got, rv, I32_MAX),
                           "amin")
     del tt, got, ri, rv
     # the owner's own column first, else the minimum proposing sender
     has = dense < I32_MAX
     first_m = has.to(torch.int8).argmax(dim=2)
-    sel = torch.where(has[:, cols, cols], cols.view(1, C, 1), first_m)
+    sel = torch.where(has[:, lj_all, cols], cols.view(1, Cl, 1), first_m)
     parent = torch.gather(dense, 2, sel.unsqueeze(2))[:, :, 0]
     new = has.any(dim=2) & ~vis_owned_prev
     del dense
 
     for i, j in topo.coords():
+        li, lj = blk.loc(i, j)
         sl = slice(j * S, (j + 1) * S)
-        n_ij = new[i, j]
-        st.visited[i, j, sl] |= n_ij
-        st.level[i, j, sl] = torch.where(n_ij, st.lvl, st.level[i, j, sl])
-        st.pred[i, j, sl] = torch.where(n_ij, parent[i, j],
-                                        st.pred[i, j, sl])
+        n_ij = new[li, lj]
+        st.visited[li, lj, sl] |= n_ij
+        st.level[li, lj, sl] = torch.where(n_ij, st.lvl,
+                                           st.level[li, lj, sl])
+        st.pred[li, lj, sl] = torch.where(n_ij, parent[li, lj],
+                                          st.pred[li, lj, sl])
 
     # the next frontier: owned rows as local cols (ROW2COL), ascending --
     # already the canonical order `canonical_front` would sort into
-    ts, nc = F.compact_offsets(new.reshape(R * C, S), engine.fold_ops)
-    i_s = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1) * S
-    ts = ts.view(R, C, S)
+    ts, nc = F.compact_offsets(new.reshape(Rl * Cl, S), engine.fold_ops)
+    i_s = blk.rows(dev).view(Rl, 1, 1) * S
+    ts = ts.view(Rl, Cl, S)
     front = torch.where(ts >= 0, i_s + ts, -1)
     return BFSState(level=st.level, pred=st.pred, visited=st.visited,
-                    front=front, front_cnt=nc.view(R, C), lvl=st.lvl + 1), aux
+                    front=front, front_cnt=nc.view(Rl, Cl),
+                    lvl=st.lvl + 1), aux
 
 
 def make_bfs_bottomup_step(engine, graph, extra):

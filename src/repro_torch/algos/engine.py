@@ -14,6 +14,16 @@ totals in Python ints; `wide_add` / `wide_total` keep the JAX engine's
 
 A batch of searches runs root by root, as `lax.map` does.
 
+Across a process group (`dist.topology.GroupTopology`) every rank runs the
+same loop over its block of the grid.  Every decision that changes control
+flow reads group-wide values -- `keep_going` and the direction read the
+plan's counts[0], the topology's `psum_all` -- so the ranks issue the same
+collectives in the same order; the edge totals that follow it are the
+rank's own processors', and `edges_scanned` is summed over the group once,
+when a search is finalized (an int64 all_reduce).  The roots of a batch
+must be the same on every rank (JAX's `put_replicated`).  Telemetry and
+fault tolerance are not ported to a group yet (ROADMAP A13 part 2).
+
 With telemetry on, the loop records one level of `obs.trace` after each
 step, where the JAX loop body does: the frontier total the level read, the
 processors' frontier counts before the step, the step's per-processor
@@ -47,6 +57,14 @@ from repro_torch.kernels.select import resolve_path
 from repro_torch.obs import trace as T
 
 
+def group_not_ported(what: str) -> NotImplementedError:
+    """The error a process-group run raises for a feature still to be
+    ported there (ROADMAP A13 part 2)."""
+    return NotImplementedError(
+        f"{what} is not ported to a process group yet (ROADMAP A13 part 2); "
+        f"it runs on the stacked grid (DistGraph.from_edges without mesh=)")
+
+
 def wide_add(hi, lo, delta):
     """(hi, lo) uint32 pair += delta (any non-negative integer dtype; delta
     wraps to its low 32 bits, as the JAX engine's cast does).  Tensors in,
@@ -69,7 +87,8 @@ def wide_total(hi, lo) -> int:
 class FrontierEngine:
     """Whole-search driver for one `FrontierProgram` over a topology.
 
-    topo:       `StackedTopology` (grid + device).
+    topo:       `StackedTopology` (grid + device) or `GroupTopology`
+                (this rank's block of a process group).
     program:    the FrontierProgram to drive.
     fold_codec: "list" | FoldCodec instance | None (program's hint).
     edge_chunk: CSC scan chunk size of the expand phase.
@@ -122,6 +141,11 @@ class FrontierEngine:
                  fault_tolerance: bool = False, ckpt_every: int = 1):
         if edge_chunk < 1:
             raise ValueError(f"edge_chunk must be >= 1, got {edge_chunk}")
+        if topo.distributed:
+            for asked, what in ((telemetry, "telemetry=True"),
+                                (fault_tolerance, "fault_tolerance=True")):
+                if asked:
+                    raise group_not_ported(what)
         # resolve + validate the strategy and bind it into the topology:
         # the codecs and resolve_preds call topo.col_all_to_all
         self.exchange = get_exchange(exchange, topo.grid)
@@ -217,7 +241,7 @@ class FrontierEngine:
         """A run's per-search outputs: finalize's, then edges_scanned, then
         the trace outputs with telemetry on."""
         outs = tuple(self.program.finalize(self, run["st"])) \
-            + (run["scanned"],)
+            + (self.topo.total(run["scanned"]),)
         tr = run["trace"]
         return outs if tr is None else outs + T.trace_outputs(tr)
 

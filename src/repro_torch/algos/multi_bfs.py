@@ -1,5 +1,5 @@
 """Batched multi-source BFS / reachability (DESIGN.md sec. 8), the port of
-`repro/algos/multi_bfs.py` on the stacked grid.
+`repro/algos/multi_bfs.py`.
 
 ONE wave sweeps out from K sources at once: every vertex records the level
 at which the combined wave first reached it and the index (into `sources`)
@@ -57,22 +57,29 @@ class MultiSourceBFSProgram(FrontierProgram):
 
     def init(self, engine, graph, sources):
         grid, dev = engine.grid, engine.device
-        R, C, nrl = grid.R, grid.C, grid.n_rows_local
+        nrl = grid.n_rows_local
+        blk = engine.topo.local
+        Rl, Cl = blk.Rl, blk.Cl
         s = torch.as_tensor(sources, dtype=torch.int64, device=dev)
         oi, oj = owner_of(s, grid)
-        flat = (oi * C + oj) * nrl + local_row(s, grid)
+        li, lj = oi - blk.i0, oj - blk.j0
+        here = (li >= 0) & (li < Rl) & (lj >= 0) & (lj < Cl)
+        # sources this block does not own land in the trailing sink slot
+        flat = torch.where(here, (li * Cl + lj) * nrl + local_row(s, grid),
+                           Rl * Cl * nrl)
         # min source index per claimed row (duplicate sources: first wins)
-        src = torch.full((R * C * nrl,), I32_MAX, dtype=torch.int32,
+        src = torch.full((Rl * Cl * nrl + 1,), I32_MAX, dtype=torch.int32,
                          device=dev)
         src.scatter_reduce_(0, flat, torch.arange(s.shape[0],
                                                   dtype=torch.int32,
                                                   device=dev), "amin")
-        src = src.view(R, C, nrl)
+        src = src[:-1].view(Rl, Cl, nrl)
         claimed = src < I32_MAX
-        owned_src = PR.owned_rows(src, grid)
+        owned_src = PR.owned_rows(src, grid, blk.j0)
         front, payload, cnt = PR.owned_to_front(owned_src < I32_MAX,
                                                 owned_src, grid,
-                                                ops=engine.fold_ops)
+                                                ops=engine.fold_ops,
+                                                i0=blk.i0)
         return MultiBFSState(visited=claimed,
                              level=torch.where(claimed, 0, -1).to(
                                  torch.int32),
@@ -98,10 +105,11 @@ class MultiSourceBFSProgram(FrontierProgram):
 
     def _make_step(self, engine, scan, step_dir: int):
         grid, topo = engine.grid, engine.topo
+        i0, j0 = topo.local.i0, topo.local.j0
 
         def step(st: MultiBFSState, plan, counts):
             cand = scan(st, plan, counts[1:])
-            vis_owned_prev = PR.owned_rows(st.visited, grid)
+            vis_owned_prev = PR.owned_rows(st.visited, grid, j0)
             # first fold per vertex per processor (the BFS visited
             # discipline)
             improved = (cand < I32_MAX) & ~st.visited
@@ -128,14 +136,16 @@ class MultiSourceBFSProgram(FrontierProgram):
             # arriving from a peer in the same wave
             changed = (inc < I32_MAX) & ~vis_owned_prev
             new_src = torch.where(changed, inc,
-                                  PR.owned_rows(st.src, grid))
-            PR.set_owned_rows(st.src, new_src, grid)
+                                  PR.owned_rows(st.src, grid, j0))
+            PR.set_owned_rows(st.src, new_src, grid, j0)
             PR.set_owned_rows(st.level, torch.where(
-                changed, st.lvl, PR.owned_rows(st.level, grid)), grid)
-            PR.set_owned_rows(st.visited, PR.owned_rows(st.visited, grid)
-                              | changed, grid)
+                changed, st.lvl, PR.owned_rows(st.level, grid, j0)), grid,
+                j0)
+            PR.set_owned_rows(st.visited, PR.owned_rows(st.visited, grid, j0)
+                              | changed, grid, j0)
             front, payload, nc = PR.owned_to_front(changed, new_src, grid,
-                                                   ops=engine.fold_ops)
+                                                   ops=engine.fold_ops,
+                                                   i0=i0)
             return (MultiBFSState(visited=st.visited, level=st.level,
                                   src=st.src, front=front, payload=payload,
                                   front_cnt=nc, lvl=st.lvl + 1),
@@ -195,9 +205,10 @@ class MultiSourceBFSProgram(FrontierProgram):
                              payload=payload, front_cnt=cnt, lvl=lvl)
 
     def finalize(self, engine, st):
-        grid = engine.grid
-        level = PR.global_order(PR.owned_rows(st.level, grid))
-        src = PR.global_order(PR.owned_rows(st.src, grid))
+        grid, topo = engine.grid, engine.topo
+        j0 = topo.local.j0
+        level = PR.global_order(PR.owned_rows(st.level, grid, j0), topo)
+        src = PR.global_order(PR.owned_rows(st.src, grid, j0), topo)
         return level, torch.where(src == I32_MAX, -1, src), st.lvl
 
     def assemble(self, engine, outs, B):

@@ -17,8 +17,12 @@ components, SSSP and multi-source BFS (`cc.py`, `sssp.py`, `multi_bfs.py`):
   next frontier from the changed owned rows (`owned_to_front`).
 
 Everything is min-combined, so results do not depend on delivery order and
-every fold codec gives the same outputs.  State is stacked over the grid:
-(R, C, ...) arrays, the loops over processors explicit.
+every fold codec gives the same outputs.  State is stacked over the
+topology's block of the grid (`dist.topology.LocalBlock`): (Rl, Cl, ...)
+arrays, processor (i, j) at `local.loc(i, j)`, the loops over the block's
+processors explicit.  On the stacked grid the block is the whole grid;
+across a process group every read of another processor's data goes through
+the topology's collectives, and grid-wide outputs through `topo.fetch`.
 """
 from __future__ import annotations
 
@@ -164,28 +168,33 @@ def identity_relax(p, w):
     return p
 
 
-def global_order(owned):
+def global_order(owned, topo=None):
     """(R, C, S) owned blocks -> (n,) in global vertex order (processor
-    (i, j) owns block b = j*R + i)."""
+    (i, j) owns block b = j*R + i).  topo: the blocks are that topology's
+    (Rl, Cl, S), fetched whole to every rank first."""
+    if topo is not None:
+        owned = topo.fetch(owned)
     return owned.transpose(0, 1).reshape(-1)
 
 
-def owned_rows(x, grid: Grid2D):
-    """(R, C, n_rows_local [+ 1], ...) -> every processor's owned block
-    (R, C, S, ...), a copy: processor (i, j) owns local rows j*S ..
-    j*S + S - 1."""
-    R, C, S = grid.R, grid.C, grid.S
-    blocks = x[:, :, :grid.n_rows_local].reshape((R, C, C, S) + x.shape[3:])
-    cols = torch.arange(C, device=x.device)
-    return blocks[:, cols, cols]
+def owned_rows(x, grid: Grid2D, j0: int = 0):
+    """(Rl, Cl, n_rows_local [+ 1], ...) -> every processor's owned block
+    (Rl, Cl, S, ...), a copy: processor (i, j) owns local rows j*S ..
+    j*S + S - 1.  j0: the grid column of the block's first column."""
+    C, S = grid.C, grid.S
+    Rl, Cl = x.shape[:2]
+    blocks = x[:, :, :grid.n_rows_local].reshape((Rl, Cl, C, S)
+                                                 + x.shape[3:])
+    lj = torch.arange(Cl, device=x.device)
+    return blocks[:, lj, j0 + lj]
 
 
-def set_owned_rows(x, owned, grid: Grid2D) -> None:
-    """Write (R, C, S) `owned` into every processor's owned block of the
-    contiguous (R, C, n_rows_local) `x`, in place."""
-    R, C, S = grid.R, grid.C, grid.S
-    cols = torch.arange(C, device=x.device)
-    x.view(R, C, C, S)[:, cols, cols] = owned
+def set_owned_rows(x, owned, grid: Grid2D, j0: int = 0) -> None:
+    """Write (Rl, Cl, S) `owned` into every processor's owned block of the
+    contiguous (Rl, Cl, n_rows_local) `x`, in place."""
+    Rl, Cl = x.shape[:2]
+    lj = torch.arange(Cl, device=x.device)
+    x.view(Rl, Cl, grid.C, grid.S)[:, lj, j0 + lj] = owned
 
 
 # ----------------------------------------------------------------------------
@@ -229,10 +238,12 @@ def scan_workload(engine, graph, all_front, front_total, front_cnt):
     the global frontier size, then every processor's edges to scan -- that
     the engine reads once per level)."""
     topo = engine.topo
+    loc = topo.local.loc
     cumul, totals = [], []
     for i, j in topo.coords():
-        c, t = F.scan_plan(graph.col_off[i, j], all_front[i, j],
-                           front_total[i, j])
+        li, lj = loc(i, j)
+        c, t = F.scan_plan(graph.col_off[li, lj], all_front[li, lj],
+                           front_total[li, lj])
         cumul.append(c)
         totals.append(t)
     counts = torch.stack([topo.psum_all(front_cnt)] + totals)
@@ -316,22 +327,25 @@ def scatter_min_received(recv_ids, recv_vals, j, S: int):
     return inc
 
 
-def owned_to_front(changed, vals, grid: Grid2D, fill_val=I32_MAX, ops=None):
+def owned_to_front(changed, vals, grid: Grid2D, fill_val=I32_MAX, ops=None,
+                   i0: int = 0):
     """Changed owned rows -> next frontier, canonical ascending.
 
-    changed / vals: (R, C, S).  Owned local row j*S + t of processor (i, j)
-    becomes local col i*S + t (paper ROW2COL).  Returns (front (R, C, S)
-    col ids pad -1, payload aligned pad `fill_val`, cnt (R, C)).  ops: the
+    changed / vals: (Rl, Cl, S).  Owned local row j*S + t of processor
+    (i, j) becomes local col i*S + t (paper ROW2COL).  Returns (front
+    (Rl, Cl, S) col ids pad -1, payload aligned pad `fill_val`, cnt
+    (Rl, Cl)).  i0: the grid row of the block's first row.  ops: the
     fold-kernel bundle for the compaction (bit-identical either way)."""
-    R, C, S = grid.R, grid.C, grid.S
-    ts, cnt = F.compact_offsets(changed.reshape(R * C, S), ops)
+    S = grid.S
+    Rl, Cl = changed.shape[:2]
+    ts, cnt = F.compact_offsets(changed.reshape(Rl * Cl, S), ops)
     ok = ts >= 0
-    payload = torch.where(ok, torch.gather(vals.reshape(R * C, S), 1,
+    payload = torch.where(ok, torch.gather(vals.reshape(Rl * Cl, S), 1,
                                            ts.clamp(min=0).long()), fill_val)
-    i_s = torch.arange(R, dtype=torch.int32,
-                       device=changed.device).view(R, 1, 1) * S
-    front = torch.where(ok.view(R, C, S), i_s + ts.view(R, C, S), -1)
-    return front, payload.view(R, C, S), cnt.view(R, C)
+    i_s = torch.arange(i0, i0 + Rl, dtype=torch.int32,
+                       device=changed.device).view(Rl, 1, 1) * S
+    front = torch.where(ok.view(Rl, Cl, S), i_s + ts.view(Rl, Cl, S), -1)
+    return front, payload.view(Rl, Cl, S), cnt.view(Rl, Cl)
 
 
 def value_fold_aux(engine, plan, cnt, direction: int) -> dict:
@@ -367,13 +381,14 @@ def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
     from repro_torch.dist.exchange import receiver_cols
 
     grid, topo = engine.grid, engine.topo
+    i0, j0 = topo.local.i0, topo.local.j0
     step_dir = 0 if scan is None else 1
     if scan is None:
         scan = push_scan(engine, graph, relax=relax, edge_vals=edge_vals)
 
     def step(st: ValueState, plan, counts):
         cand = scan(st, plan, counts[1:])
-        owned_prev = owned_rows(st.val, grid)
+        owned_prev = owned_rows(st.val, grid, j0)
         improved = cand < st.val          # strict improvements only
         torch.minimum(st.val, cand, out=st.val)
         ids, cnt, vals = pack_blocks(improved, cand, grid,
@@ -387,9 +402,9 @@ def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
         # proposals travel through the self bucket of the exchange
         new_owned = torch.minimum(owned_prev, inc)
         changed = new_owned < owned_prev
-        set_owned_rows(st.val, new_owned, grid)
+        set_owned_rows(st.val, new_owned, grid, j0)
         front, payload, nc = owned_to_front(changed, new_owned, grid,
-                                            ops=engine.fold_ops)
+                                            ops=engine.fold_ops, i0=i0)
         return (ValueState(val=st.val, front=front, payload=payload,
                            front_cnt=nc, it=st.it + 1), sum(counts[1:]), aux)
 
@@ -399,21 +414,24 @@ def make_value_step(engine, graph, *, relax, edge_vals=None, scan=None):
 def push_scan(engine, graph, *, relax, edge_vals=None):
     """The top-down scan of a value level: `scan_relax` on every processor
     over a `plan_values` plan.  Returns scan(state, plan, block_edges) ->
-    cand (R, C, n_rows_local)."""
+    cand (Rl, Cl, n_rows_local)."""
     grid, topo = engine.grid, engine.topo
     nrl = grid.n_rows_local
+    blk = topo.local
 
     def scan(st, plan, block_edges):
-        cand = torch.full((grid.R, grid.C, nrl), I32_MAX, dtype=torch.int32,
+        cand = torch.full((blk.Rl, blk.Cl, nrl), I32_MAX, dtype=torch.int32,
                           device=engine.device)
         for p, (i, j) in enumerate(topo.coords()):
-            scan_relax(graph.col_off[i, j], graph.row_idx[i, j],
-                       None if edge_vals is None else edge_vals[i, j],
-                       plan.all_front[i, j], plan.all_payload[i, j],
-                       plan.front_total[i, j], relax, n_rows=nrl,
+            li, lj = blk.loc(i, j)
+            scan_relax(graph.col_off[li, lj], graph.row_idx[li, lj],
+                       None if edge_vals is None else edge_vals[li, lj],
+                       plan.all_front[li, lj], plan.all_payload[li, lj],
+                       plan.front_total[li, lj], relax, n_rows=nrl,
                        edge_chunk=engine.edge_chunk,
                        expand_fn=engine.value_expand_fn,
-                       plan=(plan.cumul[p], block_edges[p]), cand=cand[i, j])
+                       plan=(plan.cumul[p], block_edges[p]),
+                       cand=cand[li, lj])
         return cand
 
     return scan
@@ -439,19 +457,28 @@ def rows_to_global(grid: Grid2D, i: int) -> np.ndarray:
             + np.arange(S)[None, :]).reshape(-1)
 
 
-def owned_from_global(g, grid: Grid2D):
+def owned_from_global(g, grid: Grid2D, local=None):
     """(n,) global-order tensor -> its (R, C, S) owned blocks, a view (the
-    inverse of `global_order`)."""
-    return g.view(grid.C, grid.R, grid.S).transpose(0, 1)
+    inverse of `global_order`).  local: a `topology.LocalBlock`, whose
+    (Rl, Cl, S) blocks are sliced out."""
+    owned = g.view(grid.C, grid.R, grid.S).transpose(0, 1)
+    if local is not None:
+        owned = owned[local.i0:local.i0 + local.Rl,
+                      local.j0:local.j0 + local.Cl]
+    return owned
 
 
-def rows_from_global(g, grid: Grid2D):
+def rows_from_global(g, grid: Grid2D, local=None):
     """(n,) global-order tensor -> (R, C, n_rows_local): every local row of
     processor (i, j) holds the value of its vertex, `rows_to_global(grid,
-    i)` as one view (block m of grid row i is global block m*R + i)."""
+    i)` as one view (block m of grid row i is global block m*R + i).
+    local: a `topology.LocalBlock`, whose (Rl, Cl, ...) rows only are
+    built."""
     R, C, S = grid.R, grid.C, grid.S
     rows = g.view(C, R, S).transpose(0, 1).reshape(R, C * S)
-    return rows.unsqueeze(1).expand(R, C, C * S).contiguous()
+    i0, Rl, Cl = (0, R, C) if local is None \
+        else (local.i0, local.Rl, local.Cl)
+    return rows[i0:i0 + Rl].unsqueeze(1).expand(Rl, Cl, C * S).contiguous()
 
 
 def front_mask(front, front_cnt, grid: Grid2D):

@@ -1,5 +1,5 @@
 """Single-source shortest paths on per-edge uint8 weights (DESIGN.md
-sec. 8), the port of `repro/algos/sssp.py` on the stacked grid.
+sec. 8), the port of `repro/algos/sssp.py`.
 
 Frontier-driven Bellman-Ford: the frontier payload is the vertex's current
 tentative distance, scanning edge u -> v proposes dist(u) + w(u, v), the
@@ -45,17 +45,20 @@ class SSSPProgram(FrontierProgram):
 
     def init(self, engine, graph, root):
         grid, dev = engine.grid, engine.device
-        R, C, S = grid.R, grid.C, grid.S
-        val = torch.full((R, C, grid.n_rows_local), PR.I32_MAX,
+        blk = engine.topo.local
+        Rl, Cl, S = blk.Rl, blk.Cl, grid.S
+        val = torch.full((Rl, Cl, grid.n_rows_local), PR.I32_MAX,
                          dtype=torch.int32, device=dev)
-        front = torch.full((R, C, S), -1, dtype=torch.int32, device=dev)
-        cnt = torch.zeros((R, C), dtype=torch.int32, device=dev)
+        front = torch.full((Rl, Cl, S), -1, dtype=torch.int32, device=dev)
+        cnt = torch.zeros((Rl, Cl), dtype=torch.int32, device=dev)
         oi, oj = owner_of(root, grid)
-        val[oi, oj, local_row(root, grid)] = 0
-        front[oi, oj, 0] = local_col(root, grid)
-        cnt[oi, oj] = 1
+        if blk.owns(oi, oj):                # the root's owner is here
+            li, lj = blk.loc(oi, oj)
+            val[li, lj, local_row(root, grid)] = 0
+            front[li, lj, 0] = local_col(root, grid)
+            cnt[li, lj] = 1
         return ValueState(val=val, front=front,
-                          payload=torch.zeros((R, C, S), dtype=torch.int32,
+                          payload=torch.zeros((Rl, Cl, S), dtype=torch.int32,
                                               device=dev),
                           front_cnt=cnt, it=1)
 
@@ -91,7 +94,9 @@ class SSSPProgram(FrontierProgram):
                                      pad="max", ops=engine.fold_ops)
 
     def finalize(self, engine, st):
-        d = PR.global_order(PR.owned_rows(st.val, engine.grid))
+        topo = engine.topo
+        d = PR.global_order(PR.owned_rows(st.val, engine.grid,
+                                          topo.local.j0), topo)
         return torch.where(d == PR.I32_MAX, -1, d), st.it
 
     def assemble(self, engine, outs, B):

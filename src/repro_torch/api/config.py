@@ -186,15 +186,24 @@ class BFSConfig:
                 self.bottomup, self.exchange_name, self.telemetry,
                 self.fault_tolerance, self.ckpt_every)
 
-    def resolve_grid(self, n: int) -> Grid2D:
-        """Concretise the `grid` spelling against n vertices (padding up)."""
+    def resolve_grid(self, n: int, mesh=None) -> Grid2D:
+        """Concretise the `grid` spelling against n vertices (padding up).
+        mesh: a `dist.multihost.ProcessMesh`; with grid=None the grid is
+        the mesh's shape (JAX's `resolve_grid(n, mesh)`), and a grid given
+        beside it must match it."""
         g = self.grid
         if isinstance(g, Grid2D):
-            return g
-        if g is None:
-            R, C = 1, 1
-        elif isinstance(g, str):
-            R, C = (int(x) for x in g.lower().split("x"))
+            grid = g
         else:
-            R, C = g
-        return Grid2D.for_vertices(n, R, C)
+            if g is None:
+                R, C = (1, 1) if mesh is None else mesh.shape
+            elif isinstance(g, str):
+                R, C = (int(x) for x in g.lower().split("x"))
+            else:
+                R, C = g
+            grid = Grid2D.for_vertices(n, R, C)
+        if mesh is not None and (grid.R, grid.C) != tuple(mesh.shape):
+            raise ValueError(
+                f"config grid {grid.R}x{grid.C} does not match the process "
+                f"mesh's {mesh.shape[0]}x{mesh.shape[1]}")
+        return grid

@@ -31,6 +31,14 @@ device only while the CSR twin is unplanned: `ensure_csr` drops them once
 both layouts are resident, `release_edges()` drops them at once, and
 `bfs(validate=True)` then asks for the edge array (`validate=edges`), as
 in the JAX package.
+
+Across a process group (`from_edges(..., mesh=multihost.global_mesh(...))`)
+every rank plans and holds only its blocks of the grid, built from the host
+edge list every rank holds (numpy, memory-mapped ones included, streamed to
+the device a piece at a time), and the same queries on every rank return
+the whole grid's outputs on every rank.  Telemetry, fault tolerance,
+`recovery=`, `bfs(validate=...)` and serving raise there (ROADMAP A13
+part 2).
 """
 from __future__ import annotations
 
@@ -44,17 +52,18 @@ import torch
 from repro_torch.algos.bfs import BFSLevelsProgram
 from repro_torch.algos.cc import CCOutput, ConnectedComponentsProgram
 from repro_torch.algos.direction import DirectionProgram
-from repro_torch.algos.engine import FrontierEngine
+from repro_torch.algos.engine import FrontierEngine, group_not_ported
 from repro_torch.algos.multi_bfs import MultiBFSOutput, \
     MultiSourceBFSProgram
 from repro_torch.algos.sssp import SSSPOutput, SSSPProgram
 from repro_torch.api.config import BFSConfig
-from repro_torch.core.partition import partition_2d, partition_2d_csr, \
-    partition_edge_vals, partition_edge_vals_csr
+from repro_torch.core.partition import partition_2d_csr_with_vals, \
+    partition_2d_with_vals
 from repro_torch.core.types import BFSOutput, Grid2D, LocalGraph2D, \
     resolve_device
 from repro_torch.core.validate import EdgeIndex, validate_bfs
-from repro_torch.dist.topology import StackedTopology
+from repro_torch.dist import multihost
+from repro_torch.dist.topology import GroupTopology, StackedTopology
 
 
 def check_vertex_ids(ids, n: int, what: str = "roots") -> None:
@@ -192,7 +201,9 @@ _NO_EDGES = ("this DistGraph holds no edge list: it is released once the "
 
 
 class DistGraph:
-    """A resident, partitioned graph on one device: plan once, query many.
+    """A resident, partitioned graph: plan once, query many.  On one
+    device it holds the whole grid; across a process group, this rank's
+    blocks of it (`topology.local`).
 
     Holds the stacked CSC blocks, the CSR twin once a direction-enabled
     session needs it, the per-edge weights in CSC order (and in CSR order
@@ -210,6 +221,7 @@ class DistGraph:
         self.topology = topology
         self.grid = topology.grid
         self.device = topology.device
+        self.mesh = getattr(topology, "mesh", None)
         self.csc = csc
         self.csr = csr
         self.n = int(n) if n is not None else topology.grid.n
@@ -225,8 +237,8 @@ class DistGraph:
         self._compiled = AOTCache(aot_cache_size)
 
     @classmethod
-    def from_edges(cls, edges, config: BFSConfig = None, *, device=None,
-                   n: int | None = None, weights=None,
+    def from_edges(cls, edges, config: BFSConfig = None, *, mesh=None,
+                   device=None, n: int | None = None, weights=None,
                    aot_cache_size: int = 32) -> "DistGraph":
         """Plan a graph into residency: partition on the device.
 
@@ -238,26 +250,48 @@ class DistGraph:
         the CSR-ordered weights) is planned lazily, on the first
         direction-enabled session (`ensure_csr`), which then drops the edge
         list and its weights.  aot_cache_size: bound of the graph's
-        executable cache (`AOTCache`)."""
+        executable cache (`AOTCache`).
+
+        mesh: a `dist.multihost.ProcessMesh` -- plan this rank's blocks of
+        the mesh's grid only, on the mesh's device, from `edges` /
+        `weights` as given (the same host copy on every rank; a numpy array
+        stays on the host and is streamed a piece at a time)."""
         config = config if config is not None else BFSConfig()
+        if mesh is not None:
+            return cls._from_edges_group(edges, config, mesh, device, n,
+                                         weights, aot_cache_size)
         device = resolve_device(device)
         edges = _edge_tensor(edges, device)
         if n is None:
             n = int(edges.max()) + 1 if edges.numel() else 1
         grid = config.resolve_grid(n)
-        csc = partition_2d(edges, grid)
-        w = w_edge = None
-        if weights is not None:
-            w_edge = _value_tensor(weights, device)
-            w = partition_edge_vals(edges, w_edge, grid)
+        w_edge = None if weights is None else _value_tensor(weights, device)
+        csc, w = partition_2d_with_vals(edges, w_edge, grid)
         return cls(StackedTopology(grid, device), csc, edges=edges, n=n,
                    config=config, weights=w, edge_weights=w_edge,
                    aot_cache_size=aot_cache_size)
 
     @classmethod
+    def _from_edges_group(cls, edges, config, mesh, device, n, weights,
+                          aot_cache_size) -> "DistGraph":
+        """`from_edges` over a process group: this rank's blocks only."""
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device={device} but the process mesh's rank "
+                             f"runs on {mesh.device}")
+        if n is None:
+            n = int(edges.max()) + 1 if edges.shape[1] else 1
+        grid = config.resolve_grid(n, mesh)
+        topo = GroupTopology(grid, mesh)
+        csc, w = partition_2d_with_vals(edges, weights, grid,
+                                        local=topo.local, device=mesh.device)
+        return cls(topo, csc, edges=edges, n=n, config=config, weights=w,
+                   edge_weights=weights, aot_cache_size=aot_cache_size)
+
+    @classmethod
     def from_partition(cls, grid: Grid2D, csc: LocalGraph2D,
-                       config: BFSConfig = None, *, n: int | None = None,
-                       edges=None, csr: dict | None = None, weights=None,
+                       config: BFSConfig = None, *, mesh=None,
+                       n: int | None = None, edges=None,
+                       csr: dict | None = None, weights=None,
                        csr_weights=None) -> "DistGraph":
         """A graph whose partition is already built (for example from the
         JAX package's `partition_2d` / `partition_2d_csr` /
@@ -266,12 +300,28 @@ class DistGraph:
         a lazy CSR build (and is dropped when `csr` is given), `csr`
         supplies the CSR twin directly; `weights` /
         `csr_weights` are the (R, C, e_max) per-edge values in CSC / CSR
-        order."""
+        order.
+
+        mesh: a `dist.multihost.ProcessMesh` -- the arrays are the whole
+        grid's (host or device, the same on every rank) and this rank keeps
+        its blocks of them (`multihost.put_dev`) on the mesh's device;
+        `edges` stays as given, for a lazy CSR build of those blocks."""
         config = config if config is not None else BFSConfig()
         if config.grid is not None and config.resolve_grid(
                 n if n is not None else grid.n) != grid:
             raise ValueError(f"config grid {config.grid} does not match the "
                              f"partition's {grid.R}x{grid.C}")
+        if mesh is not None:
+            def place(x):
+                return None if x is None else multihost.put_dev(x, mesh)
+            topo = GroupTopology(grid, mesh)
+            csc = LocalGraph2D(*(place(getattr(csc, f.name))
+                                 for f in dataclasses.fields(csc)))
+            if csr is not None:
+                csr = {k: place(v) for k, v in csr.items()}
+            return cls(topo, csc, csr=csr, edges=edges, n=n, config=config,
+                       weights=place(weights),
+                       csr_weights=place(csr_weights))
         device = csc.col_off.device
         if edges is not None:
             edges = _edge_tensor(edges, device)
@@ -291,10 +341,9 @@ class DistGraph:
                     f"direction optimisation needs the CSR twin, but "
                     f"{_NO_EDGES}; pass csr= to from_partition, or plan "
                     f"with from_edges")
-            self.csr = partition_2d_csr(self.edges, self.grid)
-            if self.edge_weights is not None:
-                self.csr_weights = partition_edge_vals_csr(
-                    self.edges, self.edge_weights, self.grid)
+            self.csr, self.csr_weights = partition_2d_csr_with_vals(
+                self.edges, self.edge_weights, self.grid,
+                local=self.topology.local, device=self.device)
             self.release_edges()
         return self.csr
 
@@ -331,6 +380,8 @@ class DistGraph:
     def edge_index(self) -> EdgeIndex:
         """The sorted edge keys of rule 4, built once per graph (and
         dropped with the edge list)."""
+        if self.topology.distributed:
+            raise group_not_ported("bfs(validate=...)")
         if self._edge_index is None:
             if self.edges is None:
                 raise ValueError(
@@ -357,7 +408,7 @@ class GraphSession:
         # concrete strategy and an impossible request fails now
         self.config = self.config.resolve_exchange(graph.grid)
         if self.config.grid is not None:
-            want = self.config.resolve_grid(graph.n)
+            want = self.config.resolve_grid(graph.n, graph.mesh)
             if want != graph.grid:
                 raise ValueError(
                     f"session config asks for a {want.R}x{want.C} grid but "
@@ -395,6 +446,8 @@ class GraphSession:
                              n=self.graph.n, plan=recovery)
 
     def _check_recovery(self, recovery) -> bool:
+        if recovery is not None and self.graph.topology.distributed:
+            raise group_not_ported("recovery=")
         if recovery is not None and not self.config.fault_tolerance:
             raise ValueError(
                 "recovery= needs a fault-tolerant session; open it with "
@@ -478,6 +531,9 @@ class GraphSession:
         if roots_np.ndim > 1:
             raise ValueError(f"roots must be a scalar or 1D batch, got "
                              f"shape {roots_np.shape}")
+        if validate is not False and validate is not None \
+                and self.graph.topology.distributed:
+            raise group_not_ported("bfs(validate=...)")
         out = self._run_roots(self.engine, roots_np, self.extra, recovery,
                               self.compiled_for)
         if roots_np.ndim == 0:

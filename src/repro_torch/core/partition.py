@@ -1,28 +1,37 @@
 """2D graph partitioning (paper sec. 2.2 + 3.1), in torch on the target device.
 
 The JAX package partitions on the host with one global `np.lexsort` over
-int64 keys.  At Graph500 scale 26 that is 2^31 keys; here every processor
-block is built on its own instead -- mask the edges it owns, in input order,
-then stable-sort them by local column (by local row for the CSR twin), in
-column ranges of at most SORT_PIECE edges -- so the temporaries are a
-fraction of one block's worth.  The result equals the JAX `partition_2d` /
-`partition_2d_csr` exactly: the same stable (block, column) or (block, row)
-order, so the same offsets, indices and `nnz`.  `partition_edge_vals(_csr)`
-run the same walk with per-edge values (SSSP's weights) as the payload, so
-they line up with the indices by construction.
+int64 keys.  At Graph500 scale 26 that is 2^31 keys; here the edge list is
+walked twice in pieces of EDGE_PIECE edges instead, a stable counting sort
+by (block, local column) -- by (block, local row) for the CSR twin: the
+first walk counts every block's edges and every (block, key) pair, whose
+exclusive cumsum is the offsets; the second places each piece's edges,
+stably sorted within the piece, after the ones earlier pieces placed under
+the same pair.  So the temporaries are a piece's worth whatever a block
+holds, and the result equals the JAX `partition_2d` / `partition_2d_csr`
+exactly: the same stable (block, column) or (block, row) order, so the
+same offsets, indices and `nnz`.  `partition_edge_vals(_csr)` run the same
+walk with per-edge values (SSSP's weights) as the payload, so they line up
+with the indices by construction.
+
+Every function also builds only a rectangle of the blocks (`local=`, one
+rank's blocks in a process group) from an edge list that stays on the host
+(a numpy array, memory-mapped or not), streamed to `device=` a piece at a
+time: a rank never holds the whole edge list on its card.  The padded width
+`e_max` is still the maximum over every block, which every rank counts the
+same way, so the widths equal the whole grid's.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import Grid2D, LocalGraph2D
 
-# edges handled per elementwise pass: bounds the int32/bool temporaries of a
-# pass to a few hundred MB whatever the edge count
+# edges handled per piece of a walk: bounds a piece's temporaries (its
+# keys, their int64 stable sort and placement) to a few GiB whatever the
+# edge count
 EDGE_PIECE = 1 << 26
-# entries per stable sort: a sort of n int32 keys holds about 22 n bytes of
-# outputs and scratch, so a block of 2^29 edges is sorted in key ranges
-SORT_PIECE = 1 << 27
 
 
 # ----------------------------------------------------------------------------
@@ -67,10 +76,25 @@ def global_from_col(lc, j, grid: Grid2D):
 # 2D partition
 # ----------------------------------------------------------------------------
 
-def _pieces(edges: torch.Tensor):
-    """(u, v) int32 views of consecutive pieces of a (2, E) edge list."""
+def _pieces(edges, device, vals=None):
+    """(u, v, values) int32 pieces of consecutive edges of a (2, E) edge
+    list on `device`: views of a tensor already there, else copies of one
+    piece at a time of a host array (numpy, memory-mapped ones included),
+    so a host edge list is never on the device whole.  values: the
+    piece's slice of `vals` (E,), or None."""
     for a in range(0, edges.shape[1], EDGE_PIECE):
-        yield edges[0, a:a + EDGE_PIECE], edges[1, a:a + EDGE_PIECE]
+        b = a + EDGE_PIECE
+        u, v = (_on(edges[k, a:b], device, torch.int32) for k in range(2))
+        yield u, v, None if vals is None else _on(vals[a:b], device)
+
+
+def _on(x, device, dtype=None):
+    """A tensor or host array (slice) as a tensor on device (a read-only
+    array, a memory map's, is copied: torch takes writable memory only)."""
+    if not isinstance(x, torch.Tensor):
+        x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x if x.flags.writeable else x.copy())
+    return x.to(device=device, dtype=dtype)
 
 
 def _block_of(u, v, grid: Grid2D):
@@ -80,13 +104,61 @@ def _block_of(u, v, grid: Grid2D):
     return pi * grid.C + pj
 
 
-def _block_counts(edges: torch.Tensor, grid: Grid2D,
-                  pad_to: int | None):
-    """Every block's edge count (row-major p = i*C + j) and the padded
-    width e_max; raises if `pad_to` is below a block's count."""
-    counts = torch.zeros(grid.P, dtype=torch.int64, device=edges.device)
-    for u, v in _pieces(edges):
-        counts += torch.bincount(_block_of(u, v, grid), minlength=grid.P)
+def _local_block(b, local, grid: Grid2D):
+    """Processor p = i*C + j -> its index in the rectangle `local`
+    (i0, j0, Rl, Cl), row-major; -1 outside it."""
+    i0, j0, Rl, Cl = local
+    bi, bj = b // grid.C - i0, b % grid.C - j0
+    inside = (bi >= 0) & (bi < Rl) & (bj >= 0) & (bj < Cl)
+    return torch.where(inside, bi * Cl + bj, -1)
+
+
+def _pair_slots(u, v, grid: Grid2D, local, by_row: bool, n_keys: int):
+    """Every edge's (block, key) slot lb * n_keys + key (int64) among the
+    rectangle's blocks, the edge's block b = i*C + j, and the mask of the
+    edges the rectangle holds."""
+    b = _block_of(u, v, grid)
+    lb = _local_block(b, local, grid)
+    key = local_row(v, grid) if by_row else local_col(u, grid)
+    mine = lb >= 0
+    return lb.long() * n_keys + key, b, mine
+
+
+def _partition(edges, grid: Grid2D, pad_to, *, by_row: bool, vals=None,
+               ids: bool = True, local=None, device=None):
+    """The two walks shared by the CSC and CSR layouts and their edge
+    values: every block's edges stably sorted by local column (by local
+    row when `by_row`), as a counting sort (see the module docstring).
+
+    edges: (2, E) tensor, or host array streamed to `device` a piece at a
+    time (`_pieces`); vals: (E,) aligned values, the same kinds.  local: a
+    `dist.topology.LocalBlock` -- only its (Rl, Cl) blocks are built (None
+    = every block).  device: where the blocks are built (None = the edge
+    tensor's device).  Returns (every block's edge count, offsets
+    (Rl, Cl, n_keys + 1) int32, the other endpoint's local index
+    (Rl, Cl, e_max) padded -1 or None without `ids`, and `vals` laid out
+    alike padded 0 or None); raises if `pad_to` is below a block's
+    count."""
+    if device is None:
+        device = edges.device
+    if vals is not None and tuple(vals.shape) != (edges.shape[1],):
+        raise ValueError(f"{vals.shape[0]} edge values for {edges.shape[1]} "
+                         f"edges")
+    n_keys = grid.n_rows_local if by_row else grid.n_cols_local
+    rect = (0, 0, grid.R, grid.C) if local is None \
+        else (local.i0, local.j0, local.Rl, local.Cl)
+    Rl, Cl = rect[2:]
+    L = Rl * Cl
+    # walk 1: every block's count (the padded width is the maximum over
+    # the whole grid, whichever blocks are built) and every pair's
+    counts = torch.zeros(grid.P, dtype=torch.int64, device=device)
+    pairs = torch.zeros(L * n_keys, dtype=torch.int64, device=device)
+    for u, v, _ in _pieces(edges, device):
+        slot, b, mine = _pair_slots(u, v, grid, rect, by_row, n_keys)
+        counts += torch.bincount(b, minlength=grid.P)
+        slot = slot[mine]
+        pairs.index_add_(0, slot, torch.ones_like(slot))
+        del slot, b, mine
     counts = counts.tolist()
     e_max = pad_to if pad_to is not None else max(counts)
     for p, cnt in enumerate(counts):
@@ -94,124 +166,118 @@ def _block_counts(edges: torch.Tensor, grid: Grid2D,
             raise ValueError(
                 f"pad_to={e_max} < local nnz {cnt} at "
                 f"P({p // grid.C},{p % grid.C})")
-    return counts, e_max
+    off = torch.zeros((L, n_keys + 1), dtype=torch.int32, device=device)
+    off[:, 1:] = torch.cumsum(pairs.view(L, n_keys), dim=1)
+    # each pair's next free position in its block's row
+    cursor = off[:, :-1].reshape(-1).to(torch.int64)
+    del pairs
+    idx = torch.full((L, e_max), -1, dtype=torch.int32, device=device) \
+        if ids else None
+    vout = None
+    if vals is not None:
+        vdt = vals.dtype if isinstance(vals, torch.Tensor) \
+            else torch.from_numpy(np.zeros(0, vals.dtype)).dtype
+        vout = torch.zeros((L, e_max), dtype=vdt, device=device)
+    # walk 2: place each piece's edges, in input order within a pair
+    for u, v, w in _pieces(edges, device, vals):
+        slot, _, mine = _pair_slots(u, v, grid, rect, by_row, n_keys)
+        slot = slot[mine]
+        sv, order = torch.sort(slot, stable=True)
+        rank = torch.arange(sv.shape[0], dtype=torch.int64, device=device) \
+            - torch.searchsorted(sv, sv)
+        dest = (sv // n_keys) * e_max + cursor[sv] + rank
+        cursor.index_add_(0, slot, torch.ones_like(slot))
+        del slot, sv, rank
+        if ids:
+            other = local_col(u, grid) if by_row else local_row(v, grid)
+            idx.view(-1)[dest] = other[mine][order]
+        if w is not None:
+            vout.view(-1)[dest] = w[mine][order]
+        del dest, order, mine
+    return (counts, off.view(Rl, Cl, n_keys + 1),
+            None if idx is None else idx.view(Rl, Cl, e_max),
+            None if vout is None else vout.view(Rl, Cl, e_max))
 
 
-def _block_edges(edges: torch.Tensor, grid: Grid2D, p: int, vals=None):
-    """Block p's edges in input order as (local col, local row) int32, and
-    their values when `vals` (E,) is given (else None)."""
-    lc_parts, lr_parts, val_parts = [], [], []
-    for a, (u, v) in zip(range(0, edges.shape[1], EDGE_PIECE),
-                         _pieces(edges)):
-        mine = _block_of(u, v, grid) == p
-        lc_parts.append(local_col(u[mine], grid))
-        lr_parts.append(local_row(v[mine], grid))
-        if vals is not None:
-            val_parts.append(vals[a:a + EDGE_PIECE][mine])
-    return (torch.cat(lc_parts), torch.cat(lr_parts),
-            torch.cat(val_parts) if vals is not None else None)
+def _nnz(counts, grid: Grid2D, local, device):
+    """The built blocks' (Rl, Cl) int32 edge counts."""
+    nnz = torch.tensor(counts, dtype=torch.int32).reshape(grid.R, grid.C)
+    if local is not None:
+        nnz = nnz[local.i0:local.i0 + local.Rl, local.j0:local.j0 + local.Cl]
+    return nnz.contiguous().to(device)
 
 
-def _fill_sorted(out, key, vals, off):
-    """out[:n] = vals stably sorted by key, in key ranges of at most about
-    SORT_PIECE entries (a range holds whole keys, so the order equals one
-    stable sort of everything).  off: (n_keys + 1,) int32 exclusive cumsum
-    of the key counts."""
-    n_keys = off.shape[0] - 1
-    count = key.shape[0]
-    n_pieces = max(1, -(-count // SORT_PIECE))
-    targets = torch.arange(1, n_pieces, dtype=torch.int32,
-                           device=key.device) * (count // n_pieces)
-    cuts = torch.searchsorted(off[1:], targets, right=True)
-    bounds = [0] + cuts.tolist() + [n_keys]
-    starts = off[bounds].tolist()
-    for a, b, ea, eb in zip(bounds, bounds[1:], starts, starts[1:]):
-        if eb == ea:
-            continue
-        if n_pieces == 1:
-            ks, vs = key, vals
-        else:
-            sel = (key >= a) & (key < b)
-            ks, vs = key[sel], vals[sel]
-            del sel
-        out[ea:eb] = vs[torch.sort(ks, stable=True).indices]
-
-
-def _partition(edges: torch.Tensor, grid: Grid2D, pad_to, *, by_row: bool,
-               vals=None):
-    """The block-by-block walk shared by the CSC and CSR layouts and their
-    edge values: every block's edges stably sorted by local column
-    (by local row when `by_row`).  Returns (per-block edge counts, offsets
-    (R, C, n_keys + 1) int32, and the sorted payload (R, C, e_max): the
-    other endpoint's local index padded -1, or `vals` (E,) padded 0)."""
-    R, C = grid.R, grid.C
-    n_keys = grid.n_rows_local if by_row else grid.n_cols_local
-    dev = edges.device
-    edges = edges.to(torch.int32)
-    if vals is not None and vals.shape != (edges.shape[1],):
-        raise ValueError(f"{vals.shape[0]} edge values for {edges.shape[1]} "
-                         f"edges")
-    counts, e_max = _block_counts(edges, grid, pad_to)
-    off = torch.zeros((R, C, n_keys + 1), dtype=torch.int32, device=dev)
-    out = torch.full((R, C, e_max), -1, dtype=torch.int32, device=dev) \
-        if vals is None else torch.zeros((R, C, e_max), dtype=vals.dtype,
-                                         device=dev)
-    for i in range(R):
-        for j in range(C):
-            lc, lr, w = _block_edges(edges, grid, i * C + j, vals)
-            key, payload = (lr, lc) if by_row else (lc, lr)
-            off[i, j, 1:] = torch.cumsum(
-                torch.bincount(key, minlength=n_keys), 0)
-            _fill_sorted(out[i, j], key, payload if w is None else w,
-                         off[i, j])
-            del lc, lr, w, key, payload
-    return counts, off, out
-
-
-def partition_2d(edges: torch.Tensor, grid: Grid2D,
-                 pad_to: int | None = None) -> LocalGraph2D:
+def partition_2d(edges, grid: Grid2D, pad_to: int | None = None, *,
+                 local=None, device=None) -> LocalGraph2D:
     """Split a directed (2, E) int32 edge list [src u, dst v] among the grid.
 
     Edge (u, v) belongs to P_ij with i = (v // S) % R and j = u // (N/C).
-    The blocks are built on `edges.device`.  Returns stacked
-    col_off (R, C, N/C + 1), row_idx (R, C, e_max) padded -1, nnz (R, C).
+    The blocks are built on `edges.device` (or `device`, see `_partition`
+    for `local=` and host edge lists).  Returns stacked col_off
+    (R, C, N/C + 1), row_idx (R, C, e_max) padded -1, nnz (R, C) -- the
+    (Rl, Cl) blocks of `local` only, when given.
     """
-    counts, col_off, row_idx = _partition(edges, grid, pad_to, by_row=False)
-    nnz = torch.tensor(counts, dtype=torch.int32,
-                       device=edges.device).reshape(grid.R, grid.C)
-    return LocalGraph2D(col_off=col_off, row_idx=row_idx, nnz=nnz)
+    return partition_2d_with_vals(edges, None, grid, pad_to, local=local,
+                                  device=device)[0]
 
 
-def partition_2d_csr(edges: torch.Tensor, grid: Grid2D,
-                     pad_to: int | None = None) -> dict:
+def partition_2d_with_vals(edges, vals, grid: Grid2D,
+                           pad_to: int | None = None, *, local=None,
+                           device=None):
+    """`partition_2d` and `partition_edge_vals` in one walk over the
+    edges: (LocalGraph2D, the values (.., e_max) in its CSC order, or None
+    without `vals`)."""
+    counts, col_off, row_idx, w = _partition(
+        edges, grid, pad_to, by_row=False, vals=vals, local=local,
+        device=device)
+    return LocalGraph2D(col_off=col_off, row_idx=row_idx,
+                        nnz=_nnz(counts, grid, local, col_off.device)), w
+
+
+def partition_2d_csr(edges, grid: Grid2D, pad_to: int | None = None, *,
+                     local=None, device=None) -> dict:
     """Row-major (CSR) twin of `partition_2d` for the bottom-up direction.
 
     Built block by block like the CSC: the block's edges in input order,
     stable-sorted by local row, so within a row `col_idx` keeps the input
     order -- the JAX `np.lexsort((lr, dev))` order exactly.  Returns
     dict(row_off=(R, C, N/R + 1), col_idx=(R, C, e_max) LOCAL columns
-    padded -1, nnz=(R, C)), int32.
+    padded -1, nnz=(R, C)), int32 (`local=`, `device=`: as `partition_2d`).
     """
-    counts, row_off, col_idx = _partition(edges, grid, pad_to, by_row=True)
-    nnz = torch.tensor(counts, dtype=torch.int32,
-                       device=edges.device).reshape(grid.R, grid.C)
-    return dict(row_off=row_off, col_idx=col_idx, nnz=nnz)
+    return partition_2d_csr_with_vals(edges, None, grid, pad_to, local=local,
+                                      device=device)[0]
 
 
-def partition_edge_vals(edges: torch.Tensor, vals: torch.Tensor,
-                        grid: Grid2D, pad_to: int | None = None):
+def partition_2d_csr_with_vals(edges, vals, grid: Grid2D,
+                               pad_to: int | None = None, *, local=None,
+                               device=None):
+    """`partition_2d_csr` and `partition_edge_vals_csr` in one walk: (the
+    CSR dict, the values in its order or None)."""
+    counts, row_off, col_idx, w = _partition(
+        edges, grid, pad_to, by_row=True, vals=vals, local=local,
+        device=device)
+    return dict(row_off=row_off, col_idx=col_idx,
+                nnz=_nnz(counts, grid, local, row_off.device)), w
+
+
+def partition_edge_vals(edges, vals, grid: Grid2D, pad_to: int | None = None,
+                        *, local=None, device=None):
     """Per-edge values laid out in `partition_2d`'s CSC order.
 
     vals: (E,) tensor aligned with the `edges` columns, on their device
     (uint8 weights for SSSP).  Returns (R, C, e_max) of vals' dtype, padded
     0: entry [i, j, k] is the value of the edge `partition_2d` put at
     row_idx[i, j, k] -- the same walk with the values as the payload, so
-    the order equals the JAX `np.lexsort((lc, dev))` by construction."""
-    return _partition(edges, grid, pad_to, by_row=False, vals=vals)[2]
+    the order equals the JAX `np.lexsort((lc, dev))` by construction.
+    `local=`, `device=`: as `partition_2d`."""
+    return _partition(edges, grid, pad_to, by_row=False, vals=vals,
+                      ids=False, local=local, device=device)[3]
 
 
-def partition_edge_vals_csr(edges: torch.Tensor, vals: torch.Tensor,
-                            grid: Grid2D, pad_to: int | None = None):
+def partition_edge_vals_csr(edges, vals, grid: Grid2D,
+                            pad_to: int | None = None, *, local=None,
+                            device=None):
     """Per-edge values laid out in `partition_2d_csr`'s CSR order (the
     direction-optimised SSSP pulls over this copy)."""
-    return _partition(edges, grid, pad_to, by_row=True, vals=vals)[2]
+    return _partition(edges, grid, pad_to, by_row=True, vals=vals,
+                      ids=False, local=local, device=device)[3]

@@ -1,12 +1,14 @@
 """Expand/fold exchanges and the fold wire format (DESIGN.md sec. 4 + 10),
-the port of `repro/dist/exchange.py` on the stacked grid.
+the port of `repro/dist/exchange.py`.
 
 Every fold is ONE `col_all_to_all` of one fused message: the list codec
 sends [cnt | ids] int32 per destination column, 4*S + 4 bytes each; the
 bitmap codec sends ceil(S/32) int32 bit words, 32x fewer; the delta codec
 sends [cnt lo, cnt hi | gaps] uint16, 2*S + 4 bytes, and needs S <= 65536.
-Each codec folds the whole stacked (R, C, C, S) tensor at once (one kernel
-launch per stage per fold, not one per processor).  The uint16 words are
+Each codec folds the whole (Rl, Cl, C, S) tensor of the topology's block
+at once (one kernel launch per stage per fold, not one per processor); the
+leading dims are the block's (`topology.LocalBlock`), the exchanged axes
+keep the grid's R and C.  The uint16 words are
 int16 tensors holding the JAX bit pattern (`core.frontier.u16_bits`).
 """
 from __future__ import annotations
@@ -21,20 +23,21 @@ from repro_torch.kernels import fold as KF
 def expand_exchange(front, front_cnt, *, topo, ops=None):
     """Gather the frontiers of every processor-column (paper line 13).
 
-    front: (R, C, S) int32, front_cnt: (R, C).  Returns (all_front
-    (R, C, n_cols_local) -- valid entries first, grid-row order preserved --
-    and front_total (R, C) int32).  Every processor of a column receives
-    the same gather, so each column is compacted once and shared by its R
-    processors.  ops: the fold-kernel bundle for the compaction (None = the
-    plain argsort)."""
-    R, C = topo.grid.R, topo.grid.C
-    af = topo.row_gather(front)            # (R, C, R, S)
-    ac = topo.row_gather(front_cnt)        # (R, C, R)
-    cols = [F.compact_blocks(af[0, j], ac[0, j], ops=ops) for j in range(C)]
-    all_front = torch.stack([c[0] for c in cols])            # (C, ncl)
-    total = torch.stack([c[1] for c in cols])                # (C,)
-    return (all_front.unsqueeze(0).expand(R, C, -1),
-            total.unsqueeze(0).expand(R, C))
+    front: (Rl, Cl, S) int32, front_cnt: (Rl, Cl).  Returns (all_front
+    (Rl, Cl, n_cols_local) -- valid entries first, grid-row order
+    preserved -- and front_total (Rl, Cl) int32).  Every processor of a
+    column receives the same gather, so each column is compacted once and
+    shared by the block's processors in it.  ops: the fold-kernel bundle
+    for the compaction (None = the plain argsort)."""
+    Rl, Cl = front.shape[:2]
+    af = topo.row_gather(front)            # (Rl, Cl, R, S)
+    ac = topo.row_gather(front_cnt)        # (Rl, Cl, R)
+    cols = [F.compact_blocks(af[0, lj], ac[0, lj], ops=ops)
+            for lj in range(Cl)]
+    all_front = torch.stack([c[0] for c in cols])            # (Cl, ncl)
+    total = torch.stack([c[1] for c in cols])                # (Cl,)
+    return (all_front.unsqueeze(0).expand(Rl, Cl, -1),
+            total.unsqueeze(0).expand(Rl, Cl))
 
 
 def expand_exchange_values(front, front_cnt, payload, *, topo, fill=0,
@@ -42,18 +45,19 @@ def expand_exchange_values(front, front_cnt, payload, *, topo, fill=0,
     """`expand_exchange` with an aligned per-vertex payload channel (the
     value programs' label / distance / source id).
 
-    Returns (all_front (R, C, n_cols_local), all_payload aligned, padded
-    `fill`, front_total (R, C) int32): the same compaction order as
-    `expand_exchange`, applied to ids and payload in lockstep.  All grid
+    Returns (all_front (Rl, Cl, n_cols_local), all_payload aligned, padded
+    `fill`, front_total (Rl, Cl) int32): the same compaction order as
+    `expand_exchange`, applied to ids and payload in lockstep.  The block's
     columns are compacted in one call (rows of the compaction), shared by
-    the column's R processors.  ops: the fold-kernel bundle (None = the
+    the column's processors.  ops: the fold-kernel bundle (None = the
     plain argsort)."""
-    R, C, S = topo.grid.R, topo.grid.C, topo.grid.S
-    af = topo.row_gather(front)[0].reshape(C, R * S)     # column j's gather
-    ap = topo.row_gather(payload)[0].reshape(C, R * S)
-    ac = topo.row_gather(front_cnt)[0]                   # (C, R)
+    R, S = topo.grid.R, topo.grid.S
+    Rl, Cl = front.shape[:2]
+    af = topo.row_gather(front)[0].reshape(Cl, R * S)    # column j's gather
+    ap = topo.row_gather(payload)[0].reshape(Cl, R * S)
+    ac = topo.row_gather(front_cnt)[0]                   # (Cl, R)
     mask = (torch.arange(S, dtype=torch.int32, device=front.device)
-            < ac[..., None]).reshape(C, R * S)
+            < ac[..., None]).reshape(Cl, R * S)
     total = ac.sum(dim=1, dtype=torch.int32)
     if ops is not None:
         (fr, pl), _ = ops.compact_rows(mask, (af, ap), (-1, fill))
@@ -62,22 +66,25 @@ def expand_exchange_values(front, front_cnt, payload, *, topo, fill=0,
         valid = torch.gather(mask, 1, order)
         fr = torch.where(valid, torch.gather(af, 1, order), -1)
         pl = torch.where(valid, torch.gather(ap, 1, order), fill)
-    return (fr.unsqueeze(0).expand(R, C, -1), pl.unsqueeze(0).expand(R, C, -1),
-            total.unsqueeze(0).expand(R, C))
+    return (fr.unsqueeze(0).expand(Rl, Cl, -1),
+            pl.unsqueeze(0).expand(Rl, Cl, -1),
+            total.unsqueeze(0).expand(Rl, Cl))
 
 
 def resolve_preds(pred, *, topo):
     """Final deferred-predecessor exchange (paper sec. 3.5 / contribution [2]).
 
-    pred: (R, C, n_rows_local) with deferred markers -(c+2).  One
+    pred: (Rl, Cl, n_rows_local) with deferred markers -(c+2).  One
     all_to_all of the pred rows (viewed as C blocks of S) within each grid
     row delivers, for every owned vertex, the parent recorded by the
-    processor-column that folded it.  Returns the owned blocks (R, C, S)."""
-    R, C, S = topo.grid.R, topo.grid.C, topo.grid.S
-    pb = pred.reshape(R, C, C, S)
+    processor-column that folded it.  Returns the owned blocks
+    (Rl, Cl, S)."""
+    C, S = topo.grid.C, topo.grid.S
+    Rl, Cl = pred.shape[:2]
+    pb = pred.reshape(Rl, Cl, C, S)
     recv = topo.col_all_to_all(pb)                     # recv[i, j, m]
-    cols = torch.arange(C, device=pred.device)
-    own = pb[:, cols, cols]                            # (R, C, S) = pb[i, j, j]
+    lj = torch.arange(Cl, device=pred.device)
+    own = pb[:, lj, topo.local.j0 + lj]                # pb[i, j, j]
     deferred = own < -1
     sender = (-own - 2).clamp(0, C - 1)
     from_sender = torch.gather(recv, 2, sender.unsqueeze(2).long())[:, :, 0]
@@ -106,10 +113,10 @@ class FoldCodec:
     """Strategy for the fold exchange's wire format.
 
     fold() maps per-owner-column discovery buckets to received owned rows:
-      dst: (R, C, C, S) int32 local-row ids, bucket m holding rows of block
-      m, padded -1, packed at the front; dst_cnt: (R, C, C) int32;
-    returns (int_verts (R, C, C, S) -- processor (i, j)'s owned rows, one
-    row per sender -- and int_cnt (R, C, C)).
+      dst: (Rl, Cl, C, S) int32 local-row ids, bucket m holding rows of
+      block m, padded -1, packed at the front; dst_cnt: (Rl, Cl, C) int32;
+    returns (int_verts (Rl, Cl, C, S) -- processor (i, j)'s owned rows,
+    one row per sender -- and int_cnt (Rl, Cl, C)).
 
     ops: the fold-kernel bundle (`repro_torch.kernels.fold`) for the
     codec's encode / decode stages; None = the plain formulas.  grid: the
@@ -144,10 +151,11 @@ class FoldCodec:
         return self.wire_bytes(grid) + 4 * total_count
 
     def fold_values(self, ids, cnt, vals, *, topo):
-        """ids: (R, C, C, S) local-row ids per owner bucket, ascending,
-        front-packed, padded -1; cnt: (R, C, C); vals: aligned int32.
-        Returns (recv_ids (R, C, C, S) owned rows j*S + t, ascending
-        front-packed per sender, recv_cnt (R, C, C), recv_vals aligned)."""
+        """ids: (Rl, Cl, C, S) local-row ids per owner bucket, ascending,
+        front-packed, padded -1; cnt: (Rl, Cl, C); vals: aligned int32.
+        Returns (recv_ids (Rl, Cl, C, S) owned rows j*S + t, ascending
+        front-packed per sender, recv_cnt (Rl, Cl, C), recv_vals
+        aligned)."""
         raise NotImplementedError
 
 
@@ -172,10 +180,9 @@ class ListFold(FoldCodec):
 
 
 def receiver_cols(topo):
-    """Each stacked processor's grid column j, broadcastable to
-    (R, C, C, S): the receiver of recv[i, j, m]."""
-    return torch.arange(topo.grid.C, dtype=torch.int32,
-                        device=topo.device).view(1, -1, 1, 1)
+    """Each of the block's processors' grid column j, broadcastable to
+    (Rl, Cl, C, S): the receiver of recv[i, j, m]."""
+    return topo.local.cols(topo.device).view(1, -1, 1, 1)
 
 
 class BitmapFold(FoldCodec):

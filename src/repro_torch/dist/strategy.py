@@ -25,9 +25,12 @@ reduces the message count), flat otherwise.
 On the stacked grid every column lives on one device, so no payload travels
 and both strategies route with the same transpose-copy; the strategy's
 validation and accounting (the trace's `msgs` and `wire`) are what differ.
-The stages become real transfers only where the columns sit on different
-cards (ROADMAP A13); their XOR schedule is the JAX package's
-`repro.dist.strategy.emulate_exchange`, which the tests hold this route to.
+Across a process group (`dist.topology.GroupTopology`) flat is one
+all_to_all within the row group and the butterfly's stages are real
+transfers: a stage whose partner column lies in the rank's own block is a
+local copy, any other one pairwise exchange.  Their XOR schedule is the JAX
+package's `repro.dist.strategy.emulate_exchange`, which the tests hold this
+route to.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ import torch
 from repro_torch.core.types import Grid2D
 
 U32_MASK = 0xFFFFFFFF           # the JAX accounting's uint32 wrap
+# the integer dtype of each element size: the butterfly routes a same-size
+# integer view (torch has no index_put for uint16 / uint32)
+_SAME_SIZE_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                  8: torch.int64}
 
 
 def _log2_exact(c: int) -> int:
@@ -52,8 +59,9 @@ def flat_all_to_all(x):
 class ExchangeStrategy:
     """Strategy for routing the fold's stacked message tensor.
 
-    `all_to_all(x)` must return exactly what `flat_all_to_all(x)`
-    returns -- same values, same order, same bytes.  The accounting methods
+    `all_to_all(x, topo)` must return exactly what the topology's flat
+    route returns -- same values, same order, same bytes (topo None: the
+    stacked grid, `flat_all_to_all`).  The accounting methods
     price one exchange for the telemetry trace: `msgs_per_exchange` counts
     the point-to-point messages one column sends, `wire_bytes` scales a
     codec's flat per-exchange byte figure to this route (set folds), and
@@ -64,7 +72,7 @@ class ExchangeStrategy:
     def validate(self, grid: Grid2D, col_axes: tuple) -> None:
         """Raise ValueError when this strategy cannot run on the grid."""
 
-    def all_to_all(self, x):
+    def all_to_all(self, x, topo=None):
         raise NotImplementedError
 
     def msgs_per_exchange(self, C: int) -> int:
@@ -88,8 +96,9 @@ class FlatExchange(ExchangeStrategy):
     """The single-collective route: one all-to-all."""
     name = "flat"
 
-    def all_to_all(self, x):
-        return flat_all_to_all(x)
+    def all_to_all(self, x, topo=None):
+        return flat_all_to_all(x) if topo is None \
+            else topo.flat_all_to_all(x)
 
     def msgs_per_exchange(self, C: int) -> int:
         return max(C - 1, 0)            # the own bucket never leaves
@@ -110,7 +119,9 @@ class ButterflyExchange(ExchangeStrategy):
     H[i, j, r] = H[i, j ^ 2^s, r] on those rows (the others stay).  A
     payload with label r hops popcount(r) times and lands on j XOR r = d;
     recv[i, j, m] = H[i, j, m ^ j] is byte-identical to the flat route.
-    This schedule prices the trace's `msgs` and `wire`."""
+    This schedule prices the trace's `msgs` and `wire`.  On the stacked
+    grid no payload travels, so the route is flat's copy; across a process
+    group the stages run (`topo.butterfly_swap`)."""
     name = "butterfly"
 
     def validate(self, grid: Grid2D, col_axes: tuple) -> None:
@@ -126,9 +137,22 @@ class ButterflyExchange(ExchangeStrategy):
                 f"got col_axes={col_axes}; exchange='flat' works on "
                 f"multi-axis columns")
 
-    def all_to_all(self, x):
-        # the stages only become real transfers across cards (ROADMAP A13)
-        return flat_all_to_all(x)
+    def all_to_all(self, x, topo=None):
+        if topo is None:                    # the stacked grid
+            return flat_all_to_all(x)
+        C = topo.grid.C
+        dtype = x.dtype
+        x = x.view(_SAME_SIZE_INT[x.element_size()])
+        lj = torch.arange(x.shape[1], device=x.device)
+        # lab[lj, r] = j ^ r: H[:, lj, r] = x[:, lj, j ^ r], and since XOR
+        # is an involution the same map reads recv back out of H
+        r = torch.arange(C, device=x.device)
+        lab = (topo.local.j0 + lj)[:, None] ^ r
+        h = x[:, lj[:, None], lab]
+        for s in range(_log2_exact(C)):
+            rows = torch.nonzero((r >> s) & 1).flatten()  # bit s of the label
+            h[:, :, rows] = topo.butterfly_swap(h[:, :, rows], s)
+        return h[:, lj[:, None], lab].view(dtype)
 
     def msgs_per_exchange(self, C: int) -> int:
         return _log2_exact(C)

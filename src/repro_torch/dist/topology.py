@@ -1,30 +1,73 @@
-"""The processor grid stacked on one device (DESIGN.md sec. 5).
+"""The processor grid's topologies (DESIGN.md sec. 5 + 14).
 
 The JAX package binds the R x C grid to a device mesh and runs the level
 loop under `shard_map`.  The port keeps every per-processor array with
-leading (R, C) dims on one device, and the collectives become tensor
-operations on those dims:
+leading block dims: a topology holds a rectangular block of the grid --
+rows i0 .. i0 + Rl - 1, columns j0 .. j0 + Cl - 1 (its `local`
+description) -- and every per-processor array has leading (Rl, Cl) dims,
+processor (i, j) at `local.loc(i, j)`.  The three collectives:
 
   row_gather      (paper line 13)  all_gather within a processor-column:
-                  processor (i, j) receives x[:, j] from every grid row;
-  col_all_to_all  (paper line 17)  the all_to_all within a
-                  processor-row: recv[i, j, m] = x[i, m, j], the sender and
-                  receiver column axes swapped -- exactly
-                  the JAX package's `emulate_exchange(x, "flat")`; routed
-                  by the bound exchange strategy;
-  psum_all        a sum over the grid.
+                  (Rl, Cl, ...) -> (Rl, Cl, R, ...), out[li, lj, r] =
+                  x[r, j] -- processor (i, j) receives x[:, j] from every
+                  grid row;
+  col_all_to_all  (paper line 17)  the all_to_all within a processor-row:
+                  (Rl, Cl, C, ...) -> recv[li, lj, m] = x[i, m, j], what
+                  column m sent to j -- exactly the JAX package's
+                  `emulate_exchange(x, "flat")`; routed by the bound
+                  exchange strategy;
+  psum_all        a sum over the grid (int32 wrapping, as JAX's psum).
 
-The interface is the one a `torch.distributed` topology (one GPU per
-processor, NCCL collectives) implements later (ROADMAP A13).
+`StackedTopology` holds the whole grid on one device (the block is the
+grid) and the collectives are tensor operations.  `GroupTopology` holds one
+rank's block of a `torch.distributed` group (`dist.multihost`) and the
+collectives are real transfers within the row and column groups it builds;
+`fetch` gathers the grid-wide outputs to every rank.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.types import Grid2D
+from repro_torch.dist import multihost as MH
 from repro_torch.dist.strategy import ExchangeStrategy, FlatExchange
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalBlock:
+    """A topology's block of the grid: origin (i0, j0), shape (Rl, Cl)."""
+    i0: int
+    j0: int
+    Rl: int
+    Cl: int
+
+    def loc(self, i: int, j: int) -> tuple:
+        """Global processor (i, j) -> its index in the leading block
+        dims."""
+        return i - self.i0, j - self.j0
+
+    def coords(self) -> list:
+        """The block's global (i, j), row-major."""
+        return [(i, j) for i in range(self.i0, self.i0 + self.Rl)
+                for j in range(self.j0, self.j0 + self.Cl)]
+
+    def owns(self, i: int, j: int) -> bool:
+        return (self.i0 <= i < self.i0 + self.Rl
+                and self.j0 <= j < self.j0 + self.Cl)
+
+    def rows(self, device) -> torch.Tensor:
+        """(Rl,) int32 global grid rows of the block."""
+        return torch.arange(self.i0, self.i0 + self.Rl, dtype=torch.int32,
+                            device=device)
+
+    def cols(self, device) -> torch.Tensor:
+        """(Cl,) int32 global grid columns of the block."""
+        return torch.arange(self.j0, self.j0 + self.Cl, dtype=torch.int32,
+                            device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +82,15 @@ class StackedTopology:
     device: torch.device
     exchange: ExchangeStrategy = dataclasses.field(
         default_factory=FlatExchange)
+    distributed = False
+
+    @property
+    def local(self) -> LocalBlock:
+        return LocalBlock(0, 0, self.grid.R, self.grid.C)
 
     def coords(self):
         """Every processor's (i, j) grid coordinates, row-major."""
-        return [(i, j) for i in range(self.grid.R) for j in range(self.grid.C)]
+        return self.local.coords()
 
     def row_gather(self, x):
         """(R, C, ...) -> (R, C, R, ...): out[i, j, r] = x[r, j], a
@@ -55,7 +103,8 @@ class StackedTopology:
     def col_all_to_all(self, x):
         """(R, C, C, ...) with x[i, j, d] = processor (i, j)'s payload for
         column d -> recv[i, j, m] = x[i, m, j] (what column m sent to j),
-        routed by the bound exchange strategy."""
+        routed by the bound exchange strategy (on the stacked grid every
+        strategy routes by flat's copy)."""
         return self.exchange.all_to_all(x)
 
     def with_exchange(self, strategy) -> "StackedTopology":
@@ -66,3 +115,139 @@ class StackedTopology:
     def psum_all(self, x):
         """Sum of a per-processor (R, C) quantity over the grid."""
         return x.sum(dim=(0, 1), dtype=x.dtype)
+
+    def total(self, value: int) -> int:
+        """A per-block Python int summed over the grid (the block is the
+        grid)."""
+        return int(value)
+
+    def fetch(self, x):
+        """Per-processor (R, C, ...) blocks -> the whole grid's (the
+        identity here)."""
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class _Groups:
+    """A group topology's process groups, built once: one per block row
+    (the ranks of a processor-row) and one per block column."""
+    rows: list
+    cols: list
+
+
+def _build_groups(mesh) -> _Groups:
+    """Every row group, then every column group, in the same order on every
+    rank (`new_group` is collective over the world)."""
+    nbr, nbc = mesh.block_grid
+    rows = [dist.new_group([mesh.rank_of(bi, bj) for bj in range(nbc)])
+            for bi in range(nbr)]
+    cols = [dist.new_group([mesh.rank_of(bi, bj) for bi in range(nbr)])
+            for bj in range(nbc)]
+    return _Groups(rows, cols)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GroupTopology:
+    """One rank's block of the grid over a `torch.distributed` group.
+
+    mesh: the `multihost.ProcessMesh` (grid shape, rank, world, the rank's
+    block).  The row and column groups are built when the topology is made
+    and shared by `with_exchange`'s copies.  Every collective goes through
+    its group even when the group has one member, so a world of one rank
+    takes the path a multi-card run takes."""
+    grid: Grid2D
+    mesh: Any
+    exchange: ExchangeStrategy = dataclasses.field(
+        default_factory=FlatExchange)
+    groups: Any = None
+    distributed = True
+
+    def __post_init__(self):
+        R, C = self.mesh.shape
+        if (self.grid.R, self.grid.C) != (R, C):
+            raise ValueError(f"grid {self.grid.R}x{self.grid.C} does not "
+                             f"match the process mesh's {R}x{C}")
+        if self.groups is None:
+            object.__setattr__(self, "groups", _build_groups(self.mesh))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def local(self) -> LocalBlock:
+        m = self.mesh
+        return LocalBlock(m.i0, m.j0, m.Rl, m.Cl)
+
+    def coords(self):
+        """This rank's processors' global (i, j), row-major."""
+        return self.local.coords()
+
+    @property
+    def row_group(self):
+        return self.groups.rows[self.mesh.block_of(self.mesh.rank)[0]]
+
+    @property
+    def col_group(self):
+        return self.groups.cols[self.mesh.block_of(self.mesh.rank)[1]]
+
+    def row_gather(self, x):
+        """(Rl, Cl, ...) -> (Rl, Cl, R, ...): out[li, lj, r] = x[r, j], an
+        all_gather of the blocks within the column group."""
+        m = self.mesh
+        nbr = m.block_grid[0]
+        g = MH.all_gather(x, self.col_group, nbr)    # (nbr, Rl, Cl, ...)
+        full = g.reshape((nbr * m.Rl,) + tuple(x.shape[1:]))   # (R, Cl, ...)
+        t = full.transpose(0, 1)
+        return t.unsqueeze(0).expand((m.Rl,) + tuple(t.shape))
+
+    def col_all_to_all(self, x):
+        """(Rl, Cl, C, ...) -> recv[li, lj, m] = x[i, m, j], routed by the
+        bound exchange strategy."""
+        return self.exchange.all_to_all(x, self)
+
+    def flat_all_to_all(self, x):
+        """One all_to_all within the row group: member k (columns
+        k*Cl .. k*Cl + Cl - 1) receives x[:, :, k*Cl:(k+1)*Cl]."""
+        m = self.mesh
+        nbc = m.block_grid[1]
+        Rl, Cl = x.shape[:2]
+        tail = tuple(x.shape[3:])
+        send = x.reshape((Rl, Cl, nbc, Cl) + tail).movedim(2, 0)
+        recv = MH.all_to_all(send, self.row_group, nbc)
+        # recv[k, li, ls, lj] = member k's x[li, ls, j] -> [li, lj, k, ls]
+        return recv.permute((1, 3, 0, 2) + tuple(range(4, recv.dim()))) \
+            .reshape((Rl, Cl, nbc * Cl) + tail)
+
+    def butterfly_swap(self, part, s: int):
+        """One butterfly stage: (Rl, Cl, ...) rows of every column j ->
+        those of partner column j XOR 2^s.  A local copy when the partner
+        lies in this block, else one pairwise exchange with the rank
+        holding it."""
+        m = self.mesh
+        step = 1 << s
+        if step < m.Cl:
+            perm = torch.arange(m.Cl, device=part.device) ^ step
+            return part[:, perm]
+        bi, bj = m.block_of(m.rank)
+        peer = m.rank_of(bi, bj ^ (step // m.Cl))
+        return MH.exchange_pair(part, peer, self.row_group)
+
+    def with_exchange(self, strategy) -> "GroupTopology":
+        return dataclasses.replace(self, exchange=strategy)
+
+    def psum_all(self, x):
+        """Sum of a per-processor (Rl, Cl) quantity over the whole grid: an
+        int64 all_reduce over the world, wrapped to x's dtype as JAX's
+        psum wraps int32."""
+        s = MH.all_reduce_i64(x.sum(dtype=torch.int64))
+        return s[0].to(x.device).to(x.dtype)
+
+    def total(self, value: int) -> int:
+        """A per-rank Python int summed over the group (exact, int64)."""
+        return int(MH.all_reduce_i64([int(value)])[0])
+
+    def fetch(self, x):
+        """This rank's (Rl, Cl, ...) blocks -> the whole (R, C, ...) array,
+        on every rank."""
+        return MH.fetch(x, self.mesh)

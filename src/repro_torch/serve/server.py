@@ -483,6 +483,9 @@ class GraphServer:
     # -- residency -----------------------------------------------------------
 
     def add_graph(self, name: str, graph: DistGraph) -> None:
+        if graph.topology.distributed:
+            from repro_torch.algos.engine import group_not_ported
+            raise group_not_ported("GraphServer")
         if name in self._workers:
             raise ValueError(f"graph {name!r} already resident")
         worker = _GraphWorker(name, graph, self.config, self.accounting,

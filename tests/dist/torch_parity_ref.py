@@ -48,9 +48,19 @@ With --drills (EDGES.npz holds `weights`) it runs the standard fault-drill
 matrix, `serve-drain` included, on the first grid (`repro.scenarios.
 run_matrix`, edge_chunk 512) and writes the rows as JSON under "drills".
 
+With --multihost (EDGES.npz holds `weights`) it runs, per grid and per
+(direction, codec) of MULTIHOST_CONFIGS, the queries of
+tests/dist/torch_run_multihost.py with the codec passed to every query:
+`bfs(roots[-1])` under "{tag}_bfs1_*", `bfs(roots)` under "{tag}_bfs_*",
+`connected_components()` under "{tag}_cc_*", `sssp(roots[-1])` under
+"{tag}_sssp_*" and `multi_bfs(roots)` under "{tag}_mbfs_*" (tag =
+"{RxC}_{direction}_{codec}").  With --cover only top-down under list and
+adaptive under bitmap and delta.
+
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
-[--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills] (GRID =
-RxC).  EDGES.npz holds `edges` (2, E), `roots` (B,) and `n`.
+[--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills]
+[--multihost [--cover]] (GRID = RxC).  EDGES.npz holds `edges` (2, E),
+`roots` (B,) and `n`.
 """
 import dataclasses
 import os
@@ -61,7 +71,11 @@ EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
     else "flat"
 FT_DIR = OPTS[OPTS.index("--ft") + 1] if "--ft" in OPTS else None
 FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE,
-         "--ft", FT_DIR, "--drills")
+         "--ft", FT_DIR, "--drills", "--multihost", "--cover")
+MULTIHOST = "--multihost" in OPTS
+MULTIHOST_CONFIGS = [(False, "list"), (True, "bitmap"), (True, "delta")] \
+    if "--cover" in OPTS else [(d, c) for d in (False, True)
+                               for c in ("list", "bitmap", "delta")]
 ARGS = [a for a in OPTS if a not in FLAGS]
 DRILLS = "--drills" in OPTS
 DIRECTION = "--direction" in OPTS
@@ -214,6 +228,27 @@ def put_drills(out, grid, weights):
     out["drills"] = np.asarray(json.dumps(rows))
 
 
+def put_multihost(out, grid):
+    """The --multihost outputs of one grid (see the module docstring)."""
+    R, C = grid
+    mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])
+    graph = DistGraph.from_edges(edges, BFSConfig(grid=grid), mesh=mesh, n=n,
+                                 weights=data["weights"])
+    root = int(roots[-1])
+    for direction, codec in MULTIHOST_CONFIGS:
+        sess = graph.session(BFSConfig(grid=grid, direction=direction,
+                                       fold_codec=codec, **KNOBS))
+        tag = f"{R}x{C}_{direction_tag(direction)}_{codec}"
+        put(out, f"{tag}_bfs1", sess.bfs(root))
+        put(out, f"{tag}_bfs", sess.bfs(roots))
+        put(out, f"{tag}_cc", sess.connected_components(fold_codec=codec),
+            ("labels", "n_iters"))
+        put(out, f"{tag}_sssp", sess.sssp(root, fold_codec=codec),
+            ("dist", "n_iters"))
+        put(out, f"{tag}_mbfs", sess.multi_bfs(roots, fold_codec=codec),
+            ("level", "src", "n_levels"))
+
+
 def put_grid(out, grid):
     """The parity outputs of one grid (the modes before --ft)."""
     R, C = grid
@@ -240,6 +275,9 @@ edges, roots, n = data["edges"], data["roots"], int(data["n"])
 out = {}
 if DRILLS:
     put_drills(out, GRIDS[0], data["weights"])
+elif MULTIHOST:
+    for grid in GRIDS:
+        put_multihost(out, grid)
 elif FT_DIR is not None:
     for R, C in GRIDS:
         mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])

@@ -33,10 +33,8 @@ def test_partition_2d_equals_jax(edges, R, C):
 
 
 def test_partition_2d_in_pieces(edges, monkeypatch):
-    """Pieces and sort ranges smaller than the edge list give the same
-    partition."""
+    """Pieces smaller than the edge list give the same partition."""
     monkeypatch.setattr(P, "EDGE_PIECE", 1000)
-    monkeypatch.setattr(P, "SORT_PIECE", 700)
     want = JP.partition_2d(edges, JGrid2D(2, 4, N), pad_to=9000)
     got = P.partition_2d(torch.from_numpy(edges.copy()), Grid2D(2, 4, N),
                          pad_to=9000)
@@ -57,10 +55,8 @@ def test_partition_2d_csr_equals_jax(edges, R, C):
 
 
 def test_partition_2d_csr_in_pieces(edges, monkeypatch):
-    """Pieces and sort ranges smaller than the edge list give the same CSR
-    twin."""
+    """Pieces smaller than the edge list give the same CSR twin."""
     monkeypatch.setattr(P, "EDGE_PIECE", 1000)
-    monkeypatch.setattr(P, "SORT_PIECE", 700)
     want = JP.partition_2d_csr(edges, JGrid2D(2, 4, N), pad_to=9000)
     got = P.partition_2d_csr(torch.from_numpy(edges.copy()), Grid2D(2, 4, N),
                              pad_to=9000)
@@ -96,3 +92,39 @@ def test_index_maps_equal_jax(R, C):
         np.testing.assert_array_equal(
             P.global_from_col(lc, j, grid).numpy(),
             JP.global_from_col(lc.numpy(), j, jgrid))
+
+
+@pytest.mark.parametrize("by_row", [False, True], ids=["csc", "csr"])
+@pytest.mark.parametrize("R,C,block", [(2, 2, (0, 1, 1, 1)),
+                                       (2, 4, (1, 0, 1, 2)),
+                                       (2, 4, (0, 0, 2, 4)),
+                                       (4, 2, (2, 0, 2, 2))])
+def test_partition_local_blocks_from_a_host_array(edges, monkeypatch, R, C,
+                                                  block, by_row):
+    """A rectangle of blocks (`local=`, one rank's in a process group)
+    built from a host numpy edge list streamed in pieces, with values,
+    equals that rectangle of the whole grid's partition: offsets, indices,
+    values, nnz and the whole grid's padded width."""
+    from repro_torch.dist.topology import LocalBlock
+    monkeypatch.setattr(P, "EDGE_PIECE", 1000)
+    grid, blk = Grid2D(R, C, N), LocalBlock(*block)
+    vals = (np.arange(edges.shape[1]) % 251).astype(np.uint8)
+    part = P.partition_2d_csr_with_vals if by_row \
+        else P.partition_2d_with_vals
+    whole, wv = part(torch.from_numpy(edges.copy()), torch.from_numpy(vals),
+                     grid)
+    got, gv = part(edges, vals, grid, local=blk, device="cpu")
+    i, j = slice(blk.i0, blk.i0 + blk.Rl), slice(blk.j0, blk.j0 + blk.Cl)
+    if by_row:
+        whole, got = _as_csc(whole), _as_csc(got)
+    for f in ("col_off", "row_idx", "nnz"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      getattr(whole, f)[i, j].numpy())
+    np.testing.assert_array_equal(gv.numpy(), wv[i, j].numpy())
+
+
+def _as_csc(csr: dict):
+    """A CSR dict under the CSC field names, for one comparison loop."""
+    from repro_torch.core.types import LocalGraph2D
+    return LocalGraph2D(col_off=csr["row_off"], row_idx=csr["col_idx"],
+                        nnz=csr["nnz"])
