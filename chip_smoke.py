@@ -220,12 +220,31 @@ Phases, one line or more each on stdout:
                processor each, every rank planning only its block from the
                edge file it streams a piece at a time; under the flat and
                the butterfly exchange: top-down `bfs` of phase 4's first 2
-               roots and `bfs(roots[:2])`, `connected_components()`,
+               roots and `bfs(roots[:2])` (under the butterfly
+               `bfs(roots[:1])`), `connected_components()`,
                `sssp` of phase 9's first root and the direction-optimised
                (bitmap) `bfs` of phase 7's first root -- every output field
                on every rank equal to the stacked session's.  The NCCL leg:
                one rank holding the whole 2x2 grid, top-down `bfs` and CC
-               through the same group code path, equal likewise.  Printed:
+               through the same group code path, equal likewise, each
+               query run twice (both passes printed).  Then the search's
+               contract across the group, each rank held to stacked
+               references the parent computes on the resident graph before
+               the ranks start (build/phase17): (a) a top-down `bfs` with
+               telemetry=True, its LevelTrace equal to the stacked one;
+               (b, gloo) `bfs(root, validate=True)` and `validate=edges`
+               passing, then one output with a leaf cut off the tree
+               failing the same rule with the same message on every rank;
+               (c) fault_tolerance=True, ckpt_every=2: a top-down `bfs`
+               (and, gloo, CC) with a transient loss at level 3 and a
+               checkpoint directory (rank 0 writes it) -- outputs equal to
+               the stacked session's, the directory reloaded by every
+               rank, and the snapshot of a loss at level 3 equal to the
+               stacked one array for array; (d, gloo) the elastic shrink
+               2x2 -> 1x3 of phase 15 (e)'s top-down `bfs` (its loss at
+               level 3): rank 3 leaves, ranks 0-2 re-plan from the edge
+               file, every rank's output equal to phase 15 (e)'s.  The NCCL
+               leg runs (a) and (c) for BFS twice.  Printed:
                each rank's wall time per query and its seconds inside
                row_gather / col_all_to_all / psum_all (and the outputs'
                fetch), timed by wrappers this script puts around the
@@ -233,7 +252,10 @@ Phases, one line or more each on stdout:
                every query that searches, B7 on the direction run), plan
                seconds and peak memory; the group's top-down TEPS
                (the slowest rank's time; four ranks sharing one card: a
-               correctness run, not a scaling figure).  A rank that fails,
+               correctness run, not a scaling figure); per rank the
+               seconds in `fetch` for the trace and the snapshots, the
+               snapshot export ms, the checkpoint seconds, the re-plan
+               seconds and time_to_first_resumed_level_s.  A rank that fails,
                differs or outlives the leg's deadline fails the phase;
   6. report    every phase's peak memory, the {"kernels": [...]} line,
                the nvidia-smi line, and last
@@ -1481,7 +1503,9 @@ def run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
                    report, phases):
     """Phase 15 (e), after the resident graph is dropped: the elastic
     shrink 2x2 -> 1x3 of top-down BFS and CC under a persistent loss at
-    level 3, held to phases 4 and 9."""
+    level 3, held to phases 4 and 9.  Returns the elastic BFS output
+    (level, pred on the host, n_levels, edges_scanned), phase 17 (d)'s
+    reference."""
     from repro_torch.api import BFSConfig
     from repro_torch.core.validate import validate_bfs
     from repro_torch.runtime import DeviceLossInjector, ElasticCoordinator
@@ -1521,6 +1545,8 @@ def run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
                                  f"fires")
         if what == "bfs":
             lv, _, nl, es = scalar[0]
+            el_bfs = (out.level.cpu(), out.pred.cpu(), int(out.n_levels),
+                      out.edges_scanned)
             level, pred = out.level[:n], out.pred[:n]
             if not (torch.equal(level.cpu(), lv[:n])
                     and int(out.n_levels) == nl and out.edges_scanned == es):
@@ -1566,6 +1592,7 @@ def run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
     report["ft_elastic"] = rep
     log(f"[15 ft] (e) {phase_s:.1f} s; launches {launches}")
     phases.end("15 ft-elastic")
+    return el_bfs
 
 
 SERVE_TD_ROOTS = 11              # phase 16: top-down BFS requests
@@ -2297,7 +2324,7 @@ def run_stages(torch, args, graph, roots, scalar, chunk, b1, kernels,
 # ----------------------------------------------------------------------------
 
 GROUP_WORLD = 4                  # phase 17: gloo ranks sharing the card
-GROUP_TIMEOUT_S = 600            # a leg's deadline (every rank killed after)
+GROUP_TIMEOUT_S = 900            # a leg's deadline (every rank killed after)
 GROUP_PIECE = 1 << 26            # edges copied to the disk file at a time
 
 
@@ -2332,6 +2359,59 @@ def save_group_inputs(torch, gdir, edges, weights, n, refs) -> dict:
         json.dump(meta, f)
     meta["write_s"] = time.perf_counter() - t0
     return meta
+
+
+def add_group_refs(torch, gdir, meta, refs) -> None:
+    """More stacked references for phase 17 under `gdir` (tensors as .npy,
+    ints into meta.json), as `save_group_inputs` writes them."""
+    import numpy as np
+    for name, v in refs.items():
+        if isinstance(v, torch.Tensor):
+            np.save(os.path.join(gdir, f"ref_{name}.npy"), v.cpu().numpy())
+        else:
+            meta["ints"][name] = v
+    with open(os.path.join(gdir, "meta.json"), "w") as f:
+        json.dump({k: v for k, v in meta.items() if k != "write_s"}, f)
+
+
+def save_group_features(torch, gdir, graph, args, root, meta) -> float:
+    """Phase 17's stacked references of the search's contract, on the
+    resident graph: the LevelTrace of a top-down `bfs(root)` with
+    telemetry=True (ref_trace.npz) and the UnrecoverableLoss snapshots of
+    a loss at level 3 (ckpt_every=2, no retry) of that `bfs` and of CC,
+    written as checkpoint directories (ref_snap_bfs, ref_snap_cc).
+    Returns the seconds taken."""
+    import numpy as np
+
+    from repro_torch.api import BFSConfig
+    from repro_torch.runtime import (DeviceLossInjector,
+                                     TraversalCheckpointer,
+                                     UnrecoverableLoss)
+    t0 = time.perf_counter()
+    base = dict(grid=(graph.grid.R, graph.grid.C),
+                edge_chunk=args.edge_chunk)
+    out = graph.session(BFSConfig(**base, telemetry=True)).bfs(root)
+    tr = out.trace
+    np.savez(os.path.join(gdir, "ref_trace.npz"), **{
+        f.name: np.asarray(getattr(tr, f.name))
+        for f in dataclasses.fields(tr)})
+    del out
+    fs = graph.session(BFSConfig(**base, fault_tolerance=True,
+                                 ckpt_every=2))
+    for what, call in (("bfs", lambda p: fs.bfs(root, recovery=p)),
+                       ("cc", lambda p: fs.connected_components(
+                           recovery=p))):
+        plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=1),
+                       retries=0)
+        try:
+            call(plan)
+            raise AssertionError(f"phase 17's {what} loss did not fire")
+        except UnrecoverableLoss as e:
+            ck = TraversalCheckpointer(os.path.join(gdir, f"ref_snap_{what}"),
+                                       what, async_write=False)
+            ck.save(e.snapshot)
+    meta["ints"]["feature_root"] = int(root)
+    return time.perf_counter() - t0
 
 
 class NpyFile:
@@ -2415,6 +2495,37 @@ def run_group_leg(torch, gdir, leg, world, backend, timeout):
     return results, wall
 
 
+def log_group_features(leg, res) -> None:
+    """Print one rank's measurements of legs (a)-(d)."""
+    k, f = res["rank"], res["features"]
+
+    def secs(xs):
+        return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+    log(f"[17 group] {leg} rank {k} (a) trace of {f['trace_levels']} "
+        f"levels equal to the stacked one; fetch s in its assembly "
+        f"{secs(f['trace_fetch_s'])}")
+    if "broken_s" in f:
+        log(f"[17 group] {leg} rank {k} (b) validate=True and validate=edges"
+            f" passed; leaf {f['broken_leaf']} cut off: "
+            f"{f['broken_message']!r} in {f['broken_s']:.3f} s")
+    log(f"[17 group] {leg} rank {k} (c) snapshot exports ms "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in f['export_s'])} (fetch s "
+        f"{secs(f['export_fetch_s'])}); checkpoint s (rank 0 writes, all "
+        f"wait) {secs(f['ckpt_s'])}")
+    for q in f["ft"]:
+        log(f"[17 group] {leg} rank {k} (c) FT {q['query']}: equal to the "
+            f"stacked session after {q['retries']} retry, "
+            f"{q['checkpoints']} checkpoints, the directory reloaded in "
+            f"{q['load_s']:.3f} s; the loss snapshot ({q['snapshot_bytes']}"
+            f" B, after level {q['levels_done']}) equal to the stacked one")
+    if "elastic_plan_s" in f:
+        grids = " -> ".join(f"{a}x{b}" for a, b in f["elastic_grids"])
+        log(f"[17 group] {leg} rank {k} (d) elastic {grids}, resumed from "
+            f"level {f['resumed_from']}: equal to phase 15 (e); plan s "
+            f"{secs(f['elastic_plan_s'])}; time_to_first_resumed_level_s "
+            f"{f['t_first_resumed_s']}")
+
+
 def run_group(torch, gdir, meta, report, phases):
     """Phase 17, in the parent: the gloo leg (GROUP_WORLD ranks on the one
     card, one processor each) and the NCCL leg (one rank, the whole grid),
@@ -2445,6 +2556,12 @@ def run_group(torch, gdir, meta, report, phases):
                     f"{q['query']}: {q['s']:.3f} s wall, equal to the "
                     f"stacked session; in collectives {coll} s; launches "
                     f"{q['launches']}")
+        for res in results:
+            log_group_features(leg, res)
+        if leg == "gloo":
+            said = {r["features"]["broken_message"] for r in results}
+            log(f"[17 group] gloo (b) the broken output failed on every "
+                f"rank with one message: {sorted(said)}")
         # every rank's td scalar queries, slowest rank -> the group's time
         teps = []
         for key, m in (("bfs_r0", ints["m_r0"]), ("bfs_r1", ints["m_r1"])):
@@ -2465,6 +2582,220 @@ def run_group(torch, gdir, meta, report, phases):
         log(f"[17 group] {leg} leg: {world} ranks done in {wall:.1f} s")
     report["group"] = rep
     phases.end("17 group")
+
+
+def snapshot_equal(np, a, b, path=""):
+    """Two snapshot trees equal: keys, dtypes, shapes and values; returns
+    the first difference's path, or None."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) \
+                or sorted(a) != sorted(b):
+            return path or "/"
+        for key in a:
+            bad = snapshot_equal(np, a[key], b[key], f"{path}/{key}")
+            if bad is not None:
+                return bad
+        return None
+    a, b = np.asarray(a), np.asarray(b)
+    same = a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    return None if same else path
+
+
+def group_features(torch, args, graph, edges, mesh, gdir, ints, n, run,
+                   bfs_checks, ref, spent) -> dict:
+    """Phase 17 (a)-(c) on one rank (see the module docstring): each
+    query through `run` (held to the stacked outputs, timed, launches
+    read), the trace, validation messages and snapshots checked here.
+    Returns the rank's measurements."""
+    import numpy as np
+
+    from repro_torch.algos.engine import FrontierEngine
+    from repro_torch.api import BFSConfig
+    from repro_torch.obs import trace as T
+    from repro_torch.runtime import (DeviceLossInjector,
+                                     TraversalCheckpointer,
+                                     UnrecoverableLoss)
+    from repro_torch.runtime import recovery
+
+    k, leg = mesh.rank, args.group_leg
+    R, C = mesh.shape
+    r0 = ints["feature_root"]
+    base = dict(grid=(R, C), edge_chunk=args.edge_chunk)
+    b1b2 = ("expand_chunk", "compact_rows")
+    rep = {"trace_fetch_s": [], "export_s": [], "export_fetch_s": [],
+           "ckpt_s": []}
+
+    # host seconds (and fetch seconds) of the trace's assembly, a
+    # snapshot's export and a checkpoint's write
+    def timed(owner, name, secs, fetches=None):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            f0, t0 = spent["fetch"], time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if fetches is not None:
+                fetches.append(spent["fetch"] - f0)
+            return out
+        setattr(owner, name, wrapper)
+        return fn
+    trace_sink = []
+    orig = [(T, "assemble_traces", timed(T, "assemble_traces", trace_sink,
+                                          rep["trace_fetch_s"])),
+            (FrontierEngine, "export_carry",
+             timed(FrontierEngine, "export_carry", rep["export_s"],
+                   rep["export_fetch_s"])),
+            # rank 0's write and every rank's wait for its outcome
+            (recovery, "_save_together",
+             timed(recovery, "_save_together", rep["ckpt_s"]))]
+    passes = ("", "#2") if leg == "nccl" else ("",)
+
+    # (a) a top-down search with telemetry=True: its trace == stacked
+    want = dict(np.load(os.path.join(gdir, "ref_trace.npz")))
+    ts = graph.session(BFSConfig(**base, telemetry=True))
+    for p in passes:
+        out = run("traced_bfs" + p, "flat", lambda: ts.bfs(r0),
+                  bfs_checks("td0"), b1b2)
+        for f, w in want.items():
+            if not np.array_equal(np.asarray(getattr(out.trace, f)), w):
+                raise AssertionError(f"rank {k}: trace field {f} differs "
+                                     f"from the stacked session's")
+    rep["trace_levels"] = int(out.trace.n_levels)
+
+    # (b) Graph500 validation over every rank's share, passing, then one
+    # output broken the same way on every rank failing together
+    s = graph.session(BFSConfig(**base))
+    if leg == "gloo":
+        run("bfs_validate_true", "flat", lambda: s.bfs(r0, validate=True),
+            bfs_checks("td0"), b1b2)
+        run("bfs_validate_edges", "flat",
+            lambda: s.bfs(r0, validate=edges), bfs_checks("td0"), b1b2)
+        lv, pr = out.level.clone(), out.pred.clone()
+        # a leaf (no vertex names it parent) cut off: only its edges, on
+        # some ranks' shares, see a visited vertex next to an unvisited one
+        kids = torch.bincount(pr[pr >= 0].long(), minlength=lv.numel())
+        leaf = int(torch.nonzero((lv > 0) & (kids == 0))[0])
+        lv[leaf] = pr[leaf] = -1
+        bad = dataclasses.replace(out, level=lv, pred=pr, trace=None)
+        t0 = time.perf_counter()
+        try:
+            s._validate(bad, np.asarray(r0), True)
+            raise AssertionError(f"rank {k}: the broken output passed")
+        except AssertionError as e:
+            rep["broken_message"] = str(e)
+        rep["broken_s"] = time.perf_counter() - t0
+        if rep["broken_message"] != \
+                "edge joins visited and unvisited (incomplete BFS)":
+            raise AssertionError(f"rank {k}: the broken output failed "
+                                 f"with {rep['broken_message']!r}")
+        rep["broken_leaf"] = leaf
+    del out
+
+    # (c) fault tolerance: a transient loss at level 3 with a checkpoint
+    # directory, the directory reloaded by every rank, and the snapshot of
+    # a loss at level 3 == the stacked one
+    fs = graph.session(BFSConfig(**base, fault_tolerance=True, ckpt_every=2))
+    cc_checks = (lambda o: [("labels", ref("cc_labels")),
+                            ("n_iters", np.asarray(ints["cc_iters"])),
+                            ("edges_scanned", np.asarray(ints["cc_edges"]))])
+    queries = [("bfs", lambda p: fs.bfs(r0, recovery=p), bfs_checks("td0"),
+                b1b2)]
+    if leg == "gloo":
+        queries.append(("cc", lambda p: fs.connected_components(recovery=p),
+                        cc_checks, ("expand_chunk_values",)))
+    rep["ft"] = []
+    for what, call, checks, need in queries:
+        stacked = TraversalCheckpointer(
+            os.path.join(gdir, f"ref_snap_{what}"), what).load()
+        for p in passes:
+            d = os.path.join(gdir, f"ckpt-{leg}-{what}{p}")
+            plan = ft_plan(torch, injector=DeviceLossInjector(
+                3, transient=True), checkpointer=TraversalCheckpointer(
+                    d, what))
+            n0 = len(rep["ckpt_s"])
+            out = run(f"ft_{what}" + p, "flat", lambda: call(plan), checks,
+                      need)
+            check_retries(plan, f"rank {k}'s FT {what}")
+            if plan.injector.count != 1:
+                raise AssertionError(f"rank {k}: FT {what} fired "
+                                     f"{plan.injector.count} times")
+            retries = plan.stats["retries"]
+            t0 = time.perf_counter()
+            disk = TraversalCheckpointer(d, what).load()
+            load_s = time.perf_counter() - t0
+            st = disk["arrays"]["st"]
+            st = st.get("b0", st)
+            final = st["level"] if what == "bfs" else st["val"]
+            want = ref("td0_level" if what == "bfs" else "cc_labels")[:n]
+            if not np.array_equal(final, want):
+                raise AssertionError(f"rank {k}: the checkpoint directory's "
+                                     f"last {what} snapshot differs")
+            del out, disk, st, final
+            plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=1),
+                           retries=0)
+            e0 = len(rep["export_s"])
+            try:
+                call(plan)
+                raise AssertionError(f"rank {k}: the {what} loss did not "
+                                     f"escalate")
+            except UnrecoverableLoss as e:
+                snap = e.snapshot
+            bad = snapshot_equal(np, snap["arrays"], stacked["arrays"])
+            if bad is not None or snap["meta"] != stacked["meta"]:
+                raise AssertionError(f"rank {k}: the {what} loss snapshot "
+                                     f"differs from the stacked one at "
+                                     f"{bad or 'meta'}")
+            rep["ft"].append({
+                "query": what + p, "checkpoints": len(rep["ckpt_s"]) - n0,
+                "retries": retries, "load_s": load_s,
+                "snapshot_bytes": snapshot_bytes(snap["arrays"]),
+                "loss_export_s": rep["export_s"][e0:],
+                "levels_done": snap["meta"]["levels_done"]})
+            del snap
+    for owner, name, fn in orig:
+        setattr(owner, name, fn)
+    torch.cuda.empty_cache()
+    return rep
+
+
+def group_elastic(torch, args, edges, n, run, ref, ints) -> dict:
+    """Phase 17 (d) on one rank: phase 15 (e)'s elastic BFS (a persistent
+    loss at level 3, 2x2 -> 1x3) across the group, every rank's output
+    equal to 15 (e)'s.  Returns the rank's measurements."""
+    import numpy as np
+
+    from repro_torch.api import BFSConfig
+    from repro_torch.runtime import DeviceLossInjector, ElasticCoordinator
+
+    R, C = (int(x) for x in args.grid.lower().split("x"))
+    plans = []
+
+    class Timed(ElasticCoordinator):
+        """Times each plan of a grid (the first one, then the re-plan)."""
+
+        def _plan(self, config, mesh=None):
+            t0 = time.perf_counter()
+            out = super()._plan(config, mesh)
+            torch.cuda.synchronize()
+            plans.append(time.perf_counter() - t0)
+            return out
+
+    config = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
+                       fault_tolerance=True, ckpt_every=1)
+    coord = Timed(edges, config, n=n)
+    plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=3))
+    run("elastic_bfs", "flat", lambda: coord.run("bfs", ints["root0"],
+                                                 plan=plan),
+        lambda o: [("level", ref("el_level")), ("pred", ref("el_pred")),
+                   ("n_levels", np.asarray(ints["el_n_levels"])),
+                   ("edges_scanned", np.asarray(ints["el_edges"]))])
+    if coord.grids != [(R, C), (1, 3)] or coord.shrinks != 1:
+        raise AssertionError(f"elastic grids {coord.grids}")
+    torch.cuda.empty_cache()
+    return {"elastic_plan_s": plans, "elastic_grids": coord.grids,
+            "t_first_resumed_s": plan.stats["time_to_first_resumed_level_s"],
+            "resumed_from": plan.stats["resumed_from_level"]}
 
 
 def group_rank_main(args) -> int:
@@ -2573,20 +2904,36 @@ def group_rank_main(args) -> int:
     # builds a communicator a group at its first collective): a warm-up
     warm = graph.session(BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk))
     run("warm-up", "flat", lambda: warm.bfs(r1), bfs_checks("td1"), b1b2)
+    # the contract's legs (a)-(c) while the graph holds its edge list (the
+    # direction session below drops it), (d) last
+    features = group_features(torch, args, graph, edges, mesh, gdir, ints,
+                              n, run, bfs_checks, ref, spent)
+    # the NCCL leg runs each query twice: two earlier runs of its CC took
+    # 0.971 s and 2.710 s
+    passes = ("", "#2") if leg == "nccl" else ("",)
     for ex in exchanges:
         cfg = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
                         exchange=ex)
         s = graph.session(cfg)
-        run("bfs_r0", ex, lambda: s.bfs(r0), bfs_checks("td0"), b1b2)
+        for p in passes:
+            run("bfs_r0" + p, ex, lambda: s.bfs(r0), bfs_checks("td0"),
+                b1b2)
         if leg == "gloo":
             run("bfs_r1", ex, lambda: s.bfs(r1), bfs_checks("td1"), b1b2)
-            run("bfs_batch", ex, lambda: s.bfs([r0, r1]),
-                lambda o: bfs_checks("td0", 0)(o) + bfs_checks("td1", 1)(o),
-                b1b2)
-        run("cc", ex, s.connected_components,
-            lambda o: [("labels", ref("cc_labels")),
-                       ("n_iters", np.asarray(ints["cc_iters"])),
-                       ("edges_scanned", np.asarray(ints["cc_edges"]))])
+            # the butterfly pass's batch holds one root: with two the
+            # script ran 992.9 s of its 1200 s
+            if ex == "flat":
+                run("bfs_batch", ex, lambda: s.bfs([r0, r1]),
+                    lambda o: bfs_checks("td0", 0)(o)
+                    + bfs_checks("td1", 1)(o), b1b2)
+            else:
+                run("bfs_batch", ex, lambda: s.bfs([r0]),
+                    bfs_checks("td0", 0), b1b2)
+        for p in passes:
+            run("cc" + p, ex, s.connected_components,
+                lambda o: [("labels", ref("cc_labels")),
+                           ("n_iters", np.asarray(ints["cc_iters"])),
+                           ("edges_scanned", np.asarray(ints["cc_edges"]))])
         if leg != "gloo":
             continue
         run("sssp", ex, lambda: s.sssp(ints["sssp_root"]),
@@ -2603,12 +2950,19 @@ def group_rank_main(args) -> int:
             lambda o: bfs_checks("dir")(o)
             + [("directions", ref("dir_directions"))],
             b1b2 + ("bottomup_chunk",))
+    if leg == "gloo":
+        # the rank's graph dropped: the elastic drill plans its own
+        del graph, warm, s, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        features.update(group_elastic(torch, args, edges, n, run, ref,
+                                      ints))
     res = {"rank": k, "world": args.group_world, "backend":
            args.group_backend,
            "block": [mesh.i0, mesh.j0, mesh.Rl, mesh.Cl], "plan_s": plan_s,
            "resident_bytes": resident, "csr_s": csr_s,
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "queries": queries}
+           "queries": queries, "features": features}
     with open(os.path.join(gdir, f"{leg}-rank{k}.json"), "w") as f:
         json.dump(res, f)
     multihost.shutdown()
@@ -3254,13 +3608,21 @@ def main() -> int:
     log(f"[17 group] the edge list, weights and the stacked outputs phase "
         f"17 is held to written under build/phase17 in "
         f"{group_meta['write_s']:.1f} s")
+    feat_s = save_group_features(torch, gdir, graph, args, td_roots[0],
+                                 group_meta)
+    log(f"[17 group] the stacked trace and loss snapshots (BFS, CC) of "
+        f"phase 17's legs (a) and (c) written in {feat_s:.1f} s")
     # phase 3b's arguments are views of the graph's CSC: drop them with it
     del graph, weights, sess, dsess, eng, deng, cumul, front, ftot, \
         col_off, row_idx, words
     gc.collect()
     torch.cuda.empty_cache()
-    run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
-                   report, phases)
+    el = run_ft_elastic(torch, args, edges, index, n, td_roots, scalar, vals,
+                        report, phases)
+    add_group_refs(torch, gdir, group_meta, {
+        "el_level": el[0], "el_pred": el[1], "el_n_levels": el[2],
+        "el_edges": el[3]})
+    del el
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     del edges, index, vals

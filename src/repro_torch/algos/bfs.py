@@ -190,35 +190,24 @@ class BFSLevelsProgram(FrontierProgram):
         return st.lvl
 
     def export_state(self, engine, st, n: int) -> dict:
-        """Stacked BFSState -> global canonical snapshot (JAX's schema).
+        """BFSState -> global canonical snapshot (JAX's schema).
 
         `level` and `pred` export from the owned blocks; deferred
         predecessor markers -(c+2) resolve at export time by reading the
-        sender column's pred row (the fetch `resolve_preds` performs at
-        finalize), so the snapshot is marker-free and grid-independent.
-        The frontier is DERIVED state -- exactly the vertices with
+        sender column's pred row (`resolve_preds`, the exchange finalize
+        makes), so the snapshot is marker-free and grid-independent.
+        Across a process group both are fetched whole to every rank.  The
+        frontier is DERIVED state -- exactly the vertices with
         level == lvl-1 -- and the visited bitmap is derivable as
         level >= 0, so neither is stored.
         """
-        grid = engine.grid
-        R, C, S, nrl = grid.R, grid.C, grid.S, grid.n_rows_local
-        pb = st.pred[:, :, :nrl].reshape(R, C, C, S)   # [i, c, m, t]
-        cols = torch.arange(C, device=pb.device)
-        own = pb[:, cols, cols]                         # [i, j, t]
-        deferred = own < -1
-        snd = torch.where(deferred, -own - 2, 0).long()
-        # pb[i, snd, j, t]: the sender column's row of the same vertex
-        sent = torch.gather(pb.transpose(1, 2), 2,
-                            snd.unsqueeze(2)).squeeze(2)
-        pred = torch.where(deferred, sent, own)
-        level = PR.owned_rows(st.level, grid)
-        return {"level": PR.host(PR.global_order(level), n),
-                "pred": PR.host(PR.global_order(pred), n),
+        level, pred, _ = self.finalize(engine, st)
+        return {"level": PR.host(level, n), "pred": PR.host(pred, n),
                 "lvl": np.asarray(st.lvl, np.int64),
                 "levels_done": np.asarray(st.lvl - 1, np.int64)}
 
     def import_state(self, engine, snap: dict) -> BFSState:
-        """Global snapshot -> stacked BFSState on engine's grid.
+        """Global snapshot -> BFSState of the engine topology's block.
 
         Every local row rebuilds `level` and `visited = level >= 0` from the
         global truth: for still-unvisited vertices no processor suppresses,
@@ -228,25 +217,27 @@ class BFSLevelsProgram(FrontierProgram):
         at the owned block only (the finalize resolution leaves resolved
         entries as they are); the frontier re-derives from level == lvl-1,
         ascending -- the canonical order the organic frontier carries.  The
-        trailing sink slot takes `init_state`'s values.
+        trailing sink slot takes `init_state`'s values.  Across a process
+        group a rank builds only its blocks.
         """
-        grid, dev = engine.grid, engine.device
-        R, C, S, nrl = grid.R, grid.C, grid.S, grid.n_rows_local
+        grid, dev, blk = engine.grid, engine.device, engine.topo.local
+        C, S, nrl = grid.C, grid.S, grid.n_rows_local
+        Rl, Cl = blk.Rl, blk.Cl
         gl = PR.padded_global(snap["level"], grid, -1, dev)
         gp = PR.padded_global(snap["pred"], grid, -1, dev)
         lvl = int(snap["lvl"])
-        level = torch.full((R, C, nrl + 1), -1, dtype=torch.int32,
+        level = torch.full((Rl, Cl, nrl + 1), -1, dtype=torch.int32,
                            device=dev)
-        level[:, :, :nrl] = PR.rows_from_global(gl, grid)
+        level[:, :, :nrl] = PR.rows_from_global(gl, grid, blk)
         visited = level >= 0
-        pred = torch.full((R, C, nrl + 1), -1, dtype=torch.int32,
+        pred = torch.full((Rl, Cl, nrl + 1), -1, dtype=torch.int32,
                           device=dev)
-        cols = torch.arange(C, device=dev)
-        pred[:, :, :nrl].unflatten(2, (C, S))[:, cols, cols] = \
-            PR.owned_from_global(gp, grid)
-        owned = PR.owned_from_global(gl, grid)
+        lj = torch.arange(Cl, device=dev)
+        pred[:, :, :nrl].unflatten(2, (C, S))[:, lj, blk.j0 + lj] = \
+            PR.owned_from_global(gp, grid, blk)
+        owned = PR.owned_from_global(gl, grid, blk)
         front, _, cnt = PR.owned_to_front(owned == lvl - 1, owned, grid,
-                                          ops=engine.fold_ops)
+                                          ops=engine.fold_ops, i0=blk.i0)
         return BFSState(level=level, pred=pred, visited=visited, front=front,
                         front_cnt=cnt, lvl=lvl)
 

@@ -78,13 +78,14 @@ class ConnectedComponentsProgram(FrontierProgram):
         return st.it
 
     def export_state(self, engine, st, n: int) -> dict:
-        return PR.export_value_state(engine.grid, st, n)
+        return PR.export_value_state(engine.grid, st, n, engine.topo)
 
     def import_state(self, engine, snap: dict) -> ValueState:
         # padding vertices of the new grid are isolated self-labelled
         # components -- exactly what an uninterrupted run holds after level 1
         return PR.import_value_state(engine.grid, snap, engine.device,
-                                     pad="gid", ops=engine.fold_ops)
+                                     pad="gid", ops=engine.fold_ops,
+                                     local=engine.topo.local)
 
     def finalize(self, engine, st):
         topo = engine.topo

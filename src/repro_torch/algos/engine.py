@@ -21,8 +21,12 @@ plan's counts[0], the topology's `psum_all` -- so the ranks issue the same
 collectives in the same order; the edge totals that follow it are the
 rank's own processors', and `edges_scanned` is summed over the group once,
 when a search is finalized (an int64 all_reduce).  The roots of a batch
-must be the same on every rank (JAX's `put_replicated`).  Telemetry and
-fault tolerance are not ported to a group yet (ROADMAP A13 part 2).
+must be the same on every rank (JAX's `put_replicated`).  A rank records
+the trace of its own processors and fetches every rank's when the search
+is assembled; the segmented loop's decisions (`active`, the level count)
+are group-wide already, and a snapshot's export fetches the rank's blocks
+(`topo.fetch`), so every rank builds the same grid-independent snapshot,
+and an import keeps only the rank's blocks of one.
 
 With telemetry on, the loop records one level of `obs.trace` after each
 step, where the JAX loop body does: the frontier total the level read, the
@@ -59,9 +63,9 @@ from repro_torch.obs import trace as T
 
 def group_not_ported(what: str) -> NotImplementedError:
     """The error a process-group run raises for a feature still to be
-    ported there (ROADMAP A13 part 2)."""
+    ported there (ROADMAP A13 part 3)."""
     return NotImplementedError(
-        f"{what} is not ported to a process group yet (ROADMAP A13 part 2); "
+        f"{what} is not ported to a process group yet (ROADMAP A13 part 3); "
         f"it runs on the stacked grid (DistGraph.from_edges without mesh=)")
 
 
@@ -141,11 +145,6 @@ class FrontierEngine:
                  fault_tolerance: bool = False, ckpt_every: int = 1):
         if edge_chunk < 1:
             raise ValueError(f"edge_chunk must be >= 1, got {edge_chunk}")
-        if topo.distributed:
-            for asked, what in ((telemetry, "telemetry=True"),
-                                (fault_tolerance, "fault_tolerance=True")):
-                if asked:
-                    raise group_not_ported(what)
         # resolve + validate the strategy and bind it into the topology:
         # the codecs and resolve_preds call topo.col_all_to_all
         self.exchange = get_exchange(exchange, topo.grid)
@@ -200,7 +199,8 @@ class FrontierEngine:
 
     def _begin(self, graph, arg) -> dict:
         """A search's initial run: init, the first level's plan and read."""
-        tr = T.init_trace(self.max_levels, self.grid, self.device) \
+        blk = self.topo.local
+        tr = T.init_trace(self.max_levels, (blk.Rl, blk.Cl), self.device) \
             if self.telemetry else None
         run = {"st": self.program.init(self, graph, arg), "scanned": 0,
                "trace": tr}
@@ -253,13 +253,15 @@ class FrontierEngine:
     def assemble(self, outs, B):
         """Per-search outputs -> the program's output object, with the
         telemetry split off, assembled into host `LevelTrace`s (one read of
-        the device record), attached as the output's `trace`."""
+        the device record, every rank's fetched in it across a group),
+        attached as the output's `trace`."""
         if not self.telemetry:
             return self.program.assemble(self, outs, B)
         n = T.N_TRACE_OUTS
-        trace = T.assemble_traces([o[-n:] for o in outs], B, grid=self.grid,
-                                  program=self.program.name,
-                                  codec=self.codec.name)
+        trace = T.assemble_traces(
+            [o[-n:] for o in outs], B, grid=self.grid,
+            program=self.program.name, codec=self.codec.name,
+            fetch=self.topo.fetch)
         out = self.program.assemble(self, [o[:-n] for o in outs], B)
         return dataclasses.replace(out, trace=trace)
 
@@ -338,20 +340,23 @@ class FrontierEngine:
         (`import_carry` re-pads); `total` / `active` are the last read
         (0-d, or (B,) for a batch) and `scanned` the exact edge count as
         one int64 each (JAX sums its (hi, lo) uint32 pairs into it).
+        Across a process group the programs fetch the rank's blocks and
+        `scanned` sums every rank's, so every rank returns the same
+        snapshot.
         """
         n = int(self.grid.n if n is None else n)
         prog = self.program
         snaps = [prog.export_state(self, run["st"], n) for run in carry]
 
-        def per_search(key, dtype):
-            vals = [run[key] for run in carry]
+        def per_search(vals, dtype):
             return np.asarray(vals[0] if B is None else vals, dtype)
 
+        scanned = self.topo.totals([run["scanned"] for run in carry])
         arrays = {"st": snaps[0] if B is None
                   else {f"b{b}": s for b, s in enumerate(snaps)},
-                  "total": per_search("total", np.int64),
-                  "active": per_search("active", bool),
-                  "scanned": per_search("scanned", np.int64)}
+                  "total": per_search([r["total"] for r in carry], np.int64),
+                  "active": per_search([r["active"] for r in carry], bool),
+                  "scanned": per_search(scanned, np.int64)}
         if self.telemetry:
             arrays["trace"] = self._export_trace(carry, B)
         meta = {"program": prog.name, "codec": self.codec.name,
@@ -380,17 +385,26 @@ class FrontierEngine:
     def _place_carry(self, sts, arrays, traces) -> list:
         """Imported states + the snapshot's per-search scalars + host trace
         channels -> the carry's runs on this engine's device (the
-        `reshard_state` placement of elastic resume)."""
+        `reshard_state` placement of elastic resume).  Across a process
+        group a rank keeps its blocks of the trace channels, and the rank
+        holding processor (0, 0) carries the snapshot's `scanned` (JAX
+        puts its (hi, lo) pair there), the others 0, so the group's sum
+        stays exact."""
         from repro_torch.ckpt.elastic import reshard_state
 
         total = np.atleast_1d(arrays["total"])
         active = np.atleast_1d(arrays["active"])
-        scanned = np.atleast_1d(arrays["scanned"])
+        blk = self.topo.local
+        scanned = np.atleast_1d(arrays["scanned"]) if blk.owns(0, 0) \
+            else np.zeros(len(sts), np.int64)
         runs = []
         for b, st in enumerate(sts):
             tr = None
             if traces is not None:
-                tr = reshard_state(traces[b], self.device)
+                tr = reshard_state(
+                    {c: traces[b][c][blk.i0:blk.i0 + blk.Rl,
+                                     blk.j0:blk.j0 + blk.Cl]
+                     for c in T.TRACE_CHANNELS}, self.device)
                 for c in ("scanned", "wire"):
                     tr[c] = tr[c].to(torch.int64)
                 tr["k"], tr["L"] = int(traces[b]["k"]), int(self.max_levels)
@@ -403,14 +417,18 @@ class FrontierEngine:
         """Every run's trace record -> JAX's raw trace carry: each channel
         (R, C[, B], L) with L = max_levels (padded as a fresh record:
         0, `dir` -1; `scanned` / `wire` uint32), `k` (R, C[, B]).  For the
-        value programs L = n + 1, as in the JAX snapshot."""
+        value programs L = n + 1, as in the JAX snapshot.  Across a process
+        group every rank's channels are fetched, in one read a search."""
         R, C, L = self.grid.R, self.grid.C, int(self.max_levels)
         recs = []
         for run in carry:
             tr = run["trace"]
+            chans = torch.stack([tr[c].to(torch.int64)
+                                 for c in T.TRACE_CHANNELS], dim=2)
+            host = self.topo.fetch(chans).movedim(2, 0).cpu().numpy()
             rec = {}
-            for c in T.TRACE_CHANNELS:
-                a = tr[c].cpu().numpy()
+            for ci, c in enumerate(T.TRACE_CHANNELS):
+                a = host[ci]
                 out = np.full((R, C, L), -1 if c == "dir" else 0,
                               np.uint32 if c in ("scanned", "wire")
                               else np.int32)

@@ -160,47 +160,49 @@ class MultiSourceBFSProgram(FrontierProgram):
         return st.lvl
 
     def export_state(self, engine, st, n: int) -> dict:
-        """Stacked MultiBFSState -> global canonical snapshot (JAX's
-        schema).
+        """MultiBFSState -> global canonical snapshot (JAX's schema).
 
         `level` / `src` export RAW from the owned blocks (src keeps I32_MAX
-        for unclaimed vertices; finalize's -1 remap is output-only).  The
-        frontier derives from level == lvl-1 with the claiming source id as
-        payload, and per-processor `visited` is rebuilt as level >= 0 -- a
-        superset of any one processor's organic bitmap, which only
-        suppresses proposals for already-claimed vertices (invisible to the
-        owner's merge against its previous visited block), so a same-grid
-        resume is bit-identical.
+        for unclaimed vertices; finalize's -1 remap is output-only), fetched
+        whole to every rank across a process group.  The frontier derives
+        from level == lvl-1 with the claiming source id as payload, and
+        per-processor `visited` is rebuilt as level >= 0 -- a superset of
+        any one processor's organic bitmap, which only suppresses proposals
+        for already-claimed vertices (invisible to the owner's merge against
+        its previous visited block), so a same-grid resume is bit-identical.
         """
-        grid = engine.grid
-        level = PR.global_order(PR.owned_rows(st.level, grid))
-        src = PR.global_order(PR.owned_rows(st.src, grid))
+        grid, topo = engine.grid, engine.topo
+        j0 = topo.local.j0
+        level = PR.global_order(PR.owned_rows(st.level, grid, j0), topo)
+        src = PR.global_order(PR.owned_rows(st.src, grid, j0), topo)
         return {"level": PR.host(level, n), "src": PR.host(src, n),
                 "lvl": np.asarray(st.lvl, np.int64),
                 "levels_done": np.asarray(st.lvl - 1, np.int64)}
 
     def import_state(self, engine, snap: dict) -> MultiBFSState:
-        """Global snapshot -> stacked MultiBFSState on engine's grid.
+        """Global snapshot -> MultiBFSState of the engine topology's block.
 
         `level` / `src` are authoritative at the owned block only (steps
         never read the non-owned rows after init, so those import as
         -1 / I32_MAX); padding vertices of the new grid are unreached.
         """
-        grid, dev = engine.grid, engine.device
-        R, C, nrl = grid.R, grid.C, grid.n_rows_local
+        grid, dev, blk = engine.grid, engine.device, engine.topo.local
+        nrl = grid.n_rows_local
         gl = PR.padded_global(snap["level"], grid, -1, dev)
         gs = PR.padded_global(snap["src"], grid, I32_MAX, dev)
         lvl = int(snap["lvl"])
-        level = torch.full((R, C, nrl), -1, dtype=torch.int32, device=dev)
-        src = torch.full((R, C, nrl), I32_MAX, dtype=torch.int32,
+        level = torch.full((blk.Rl, blk.Cl, nrl), -1, dtype=torch.int32,
+                           device=dev)
+        src = torch.full((blk.Rl, blk.Cl, nrl), I32_MAX, dtype=torch.int32,
                          device=dev)
-        owned_l = PR.owned_from_global(gl, grid)
-        owned_s = PR.owned_from_global(gs, grid)
-        PR.set_owned_rows(level, owned_l, grid)
-        PR.set_owned_rows(src, owned_s, grid)
+        owned_l = PR.owned_from_global(gl, grid, blk)
+        owned_s = PR.owned_from_global(gs, grid, blk)
+        PR.set_owned_rows(level, owned_l, grid, blk.j0)
+        PR.set_owned_rows(src, owned_s, grid, blk.j0)
         front, payload, cnt = PR.owned_to_front(owned_l == lvl - 1, owned_s,
-                                                grid, ops=engine.fold_ops)
-        return MultiBFSState(visited=PR.rows_from_global(gl, grid) >= 0,
+                                                grid, ops=engine.fold_ops,
+                                                i0=blk.i0)
+        return MultiBFSState(visited=PR.rows_from_global(gl, grid, blk) >= 0,
                              level=level, src=src, front=front,
                              payload=payload, front_cnt=cnt, lvl=lvl)
 

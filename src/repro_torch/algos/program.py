@@ -355,8 +355,7 @@ def value_fold_aux(engine, plan, cnt, direction: int) -> dict:
     frame plus the count-proportional value channel (on the flat route,
     the codec's `wire_bytes_values_sent`)."""
     grid, strat = engine.grid, engine.exchange
-    cols = torch.arange(grid.C, dtype=torch.int64,
-                        device=cnt.device).view(1, grid.C)
+    cols = engine.topo.local.cols(cnt.device).to(torch.int64).view(1, -1)
     return {"scanned": plan.counts[1:],
             "folded": cnt.sum(dim=-1, dtype=torch.int32),
             "wire": strat.wire_bytes(engine.codec.wire_bytes(grid), grid.C)
@@ -481,16 +480,19 @@ def rows_from_global(g, grid: Grid2D, local=None):
     return rows[i0:i0 + Rl].unsqueeze(1).expand(Rl, Cl, C * S).contiguous()
 
 
-def front_mask(front, front_cnt, grid: Grid2D):
-    """(R, C, S) frontier col ids (valid first `front_cnt`) -> (R, C, S)
-    bool over the owned block's rows (col i*S + t is owned row t)."""
-    R, C, S = grid.R, grid.C, grid.S
+def front_mask(front, front_cnt, grid: Grid2D, i0: int = 0):
+    """(Rl, Cl, S) frontier col ids (valid first `front_cnt`) -> (Rl, Cl,
+    S) bool over the owned block's rows (col i*S + t is owned row t).
+    i0: the grid row of the block's first row."""
+    S = grid.S
+    Rl, Cl = front.shape[:2]
     dev = front.device
     valid = torch.arange(S, device=dev) < front_cnt[..., None]
-    i_s = torch.arange(R, dtype=torch.int32, device=dev).view(R, 1, 1) * S
+    i_s = torch.arange(i0, i0 + Rl, dtype=torch.int32,
+                       device=dev).view(Rl, 1, 1) * S
     # pads mark the spare slot S, dropped below
     t = torch.where(valid, front - i_s, S).long()
-    m = torch.zeros((R, C, S + 1), dtype=torch.bool, device=dev)
+    m = torch.zeros((Rl, Cl, S + 1), dtype=torch.bool, device=dev)
     m.scatter_(2, t, True)
     return m[:, :, :S]
 
@@ -515,26 +517,33 @@ def padded_global(a, grid: Grid2D, fill, device, dtype=torch.int32):
     return torch.cat([a, tail])
 
 
-def export_value_state(grid: Grid2D, st: ValueState, n: int) -> dict:
-    """Stacked ValueState -> global snapshot (JAX's `export_value_state`).
+def export_value_state(grid: Grid2D, st: ValueState, n: int,
+                       topo=None) -> dict:
+    """ValueState -> global snapshot (JAX's `export_value_state`).
 
     `val` exports the RAW owned blocks (I32_MAX = top; programs whose
     finalize remaps sentinels do so only at output time), `in_front` is the
     explicit frontier mask (value frontiers are not derivable from `val`
     alone), and the frontier payloads are NOT stored -- they equal the owned
-    value at the frontier rows, which import re-reads.
+    value at the frontier rows, which import re-reads.  topo: the state's
+    topology; across a process group both are fetched whole to every
+    rank.
     """
-    val = global_order(owned_rows(st.val, grid))
-    in_front = global_order(front_mask(st.front, st.front_cnt, grid))
+    blk = None if topo is None else topo.local
+    i0, j0 = (0, 0) if blk is None else (blk.i0, blk.j0)
+    val = global_order(owned_rows(st.val, grid, j0), topo)
+    in_front = global_order(front_mask(st.front, st.front_cnt, grid, i0),
+                            topo)
     return {"val": host(val, n), "in_front": host(in_front, n),
             "it": np.asarray(st.it, np.int64),
             "levels_done": np.asarray(st.it - 1, np.int64)}
 
 
 def import_value_state(grid: Grid2D, snap: dict, device, pad: str = "max",
-                       ops=None) -> ValueState:
-    """Global snapshot -> stacked ValueState on `grid` (JAX's
-    `import_value_state`).
+                       ops=None, local=None) -> ValueState:
+    """Global snapshot -> ValueState on `grid` (JAX's
+    `import_value_state`), of the block `local` (a `topology.LocalBlock`;
+    None = the whole grid).
 
     Every local row takes the authoritative global value: the owned block
     exactly, and remote rows get a send-suppression cache that is a SUPERSET
@@ -551,8 +560,9 @@ def import_value_state(grid: Grid2D, snap: dict, device, pad: str = "max",
                        device)
     inf = padded_global(snap["in_front"], grid, False, device,
                         dtype=torch.bool)
-    front, payload, cnt = owned_to_front(owned_from_global(inf, grid),
-                                         owned_from_global(gv, grid), grid,
-                                         ops=ops)
-    return ValueState(val=rows_from_global(gv, grid), front=front,
+    front, payload, cnt = owned_to_front(
+        owned_from_global(inf, grid, local),
+        owned_from_global(gv, grid, local), grid, ops=ops,
+        i0=0 if local is None else local.i0)
+    return ValueState(val=rows_from_global(gv, grid, local), front=front,
                       payload=payload, front_cnt=cnt, it=int(snap["it"]))

@@ -87,11 +87,12 @@ class SSSPProgram(FrontierProgram):
     def export_state(self, engine, st, n: int) -> dict:
         # RAW distances (I32_MAX = unreached); finalize's -1 remap happens
         # only at output time, never in the carry
-        return PR.export_value_state(engine.grid, st, n)
+        return PR.export_value_state(engine.grid, st, n, engine.topo)
 
     def import_state(self, engine, snap: dict) -> ValueState:
         return PR.import_value_state(engine.grid, snap, engine.device,
-                                     pad="max", ops=engine.fold_ops)
+                                     pad="max", ops=engine.fold_ops,
+                                     local=engine.topo.local)
 
     def finalize(self, engine, st):
         topo = engine.topo

@@ -36,9 +36,10 @@ Across a process group (`from_edges(..., mesh=multihost.global_mesh(...))`)
 every rank plans and holds only its blocks of the grid, built from the host
 edge list every rank holds (numpy, memory-mapped ones included, streamed to
 the device a piece at a time), and the same queries on every rank return
-the whole grid's outputs on every rank.  Telemetry, fault tolerance,
-`recovery=`, `bfs(validate=...)` and serving raise there (ROADMAP A13
-part 2).
+the whole grid's outputs on every rank.  Telemetry, fault tolerance with
+`recovery=` and `bfs(validate=...)` run there too, every rank taking each
+decision from group-wide values; serving raises there (ROADMAP A13
+part 3).
 """
 from __future__ import annotations
 
@@ -52,16 +53,17 @@ import torch
 from repro_torch.algos.bfs import BFSLevelsProgram
 from repro_torch.algos.cc import CCOutput, ConnectedComponentsProgram
 from repro_torch.algos.direction import DirectionProgram
-from repro_torch.algos.engine import FrontierEngine, group_not_ported
+from repro_torch.algos.engine import FrontierEngine
 from repro_torch.algos.multi_bfs import MultiBFSOutput, \
     MultiSourceBFSProgram
 from repro_torch.algos.sssp import SSSPOutput, SSSPProgram
 from repro_torch.api.config import BFSConfig
-from repro_torch.core.partition import partition_2d_csr_with_vals, \
-    partition_2d_with_vals
+from repro_torch.core.partition import global_from_row, \
+    partition_2d_csr_with_vals, partition_2d_with_vals
 from repro_torch.core.types import BFSOutput, Grid2D, LocalGraph2D, \
     resolve_device
-from repro_torch.core.validate import EdgeIndex, validate_bfs
+from repro_torch.core.validate import EDGE_PIECE, EdgeIndex, \
+    validate_bfs, validate_bfs_group
 from repro_torch.dist import multihost
 from repro_torch.dist.topology import GroupTopology, StackedTopology
 
@@ -379,17 +381,48 @@ class DistGraph:
 
     def edge_index(self) -> EdgeIndex:
         """The sorted edge keys of rule 4, built once per graph (and
-        dropped with the edge list)."""
+        dropped with the edge list).  Stacked graphs only: a rank of a
+        process group checks its own blocks' edges instead
+        (`_block_edge_pieces`)."""
         if self.topology.distributed:
-            raise group_not_ported("bfs(validate=...)")
+            raise ValueError("a rank of a process group holds no EdgeIndex; "
+                             "it validates over its blocks' edges")
         if self._edge_index is None:
-            if self.edges is None:
-                raise ValueError(
-                    f"bfs(validate=True) needs the edge list, but "
-                    f"{_NO_EDGES}; pass the edge array: bfs(roots, "
-                    f"validate=edges)")
-            self._edge_index = EdgeIndex(self.edges, self.n)
+            self._edge_index = EdgeIndex(self._edges_or_raise(), self.n)
         return self._edge_index
+
+    def _edges_or_raise(self):
+        """The planned edge list, or the ValueError `bfs(validate=True)`
+        raises once it is released."""
+        if self.edges is None:
+            raise ValueError(
+                f"bfs(validate=True) needs the edge list, but "
+                f"{_NO_EDGES}; pass the edge array: bfs(roots, "
+                f"validate=edges)")
+        return self.edges
+
+    def _block_edge_pieces(self):
+        """This rank's blocks' directed edges (u, v) as int64 pieces of at
+        most EDGE_PIECE / 2 edges (ranks may share a card), on the device:
+        read back from the CSC blocks, which hold every edge of the planned
+        list (self-loops and repeats included) that lands on the block, so
+        the ranks' pieces together are the edge list.  Nothing is read from
+        the host."""
+        grid, blk = self.grid, self.topology.local
+        csc = self.csc
+        ncl = grid.n_cols_local
+        piece = EDGE_PIECE // 2
+        for i, j in blk.coords():
+            li, lj = blk.loc(i, j)
+            col_off = csc.col_off[li, lj]
+            nnz = int(csc.nnz[li, lj])
+            for a in range(0, nnz, piece):
+                k = torch.arange(a, min(a + piece, nnz),
+                                 device=col_off.device)
+                col = torch.searchsorted(col_off, k, right=True) - 1
+                yield (j * ncl + col,
+                       global_from_row(csc.row_idx[li, lj, a:a + k.numel()]
+                                       .long(), i, grid))
 
     def session(self, config: BFSConfig = None) -> "GraphSession":
         """Open a query session (defaults to the planning config)."""
@@ -446,8 +479,6 @@ class GraphSession:
                              n=self.graph.n, plan=recovery)
 
     def _check_recovery(self, recovery) -> bool:
-        if recovery is not None and self.graph.topology.distributed:
-            raise group_not_ported("recovery=")
         if recovery is not None and not self.config.fault_tolerance:
             raise ValueError(
                 "recovery= needs a fault-tolerant session; open it with "
@@ -519,7 +550,10 @@ class GraphSession:
         AssertionError on any violation: True against the graph's own
         edge list and its cached `EdgeIndex`, an array against that array,
         moved to the graph's device, with an `EdgeIndex` of its own that
-        is not cached.
+        is not cached.  Across a process group every rank checks its
+        share -- its blocks' edges for True, an equal contiguous slice of
+        the array's columns otherwise -- and all raise the same message
+        together (`core.validate.validate_bfs_group`).
 
         recovery: optional `repro_torch.runtime.RecoveryPlan` (checkpointer
         / loss injector / retry policy / snapshot to resume) for a
@@ -531,25 +565,39 @@ class GraphSession:
         if roots_np.ndim > 1:
             raise ValueError(f"roots must be a scalar or 1D batch, got "
                              f"shape {roots_np.shape}")
-        if validate is not False and validate is not None \
-                and self.graph.topology.distributed:
-            raise group_not_ported("bfs(validate=...)")
         out = self._run_roots(self.engine, roots_np, self.extra, recovery,
                               self.compiled_for)
+        if validate is not False and validate is not None:
+            self._validate(out, roots_np, validate)
+        return self._traced(out)
+
+    def _validate(self, out: BFSOutput, roots_np, validate) -> None:
+        """Graph500 rule check of a query's output (see `bfs(validate=)`;
+        roots_np: its host root or roots)."""
+        g = self.graph
+        n = g.n
         if roots_np.ndim == 0:
             levels, preds = [out.level], [out.pred]
         else:
             levels, preds = list(out.level), list(out.pred)
-        if validate is not False and validate is not None:
-            n = self.graph.n
+        roots = np.atleast_1d(roots_np)
+        if g.topology.distributed:
             if isinstance(validate, bool):
-                edges, index = self.graph.edges, self.graph.edge_index()
+                g._edges_or_raise()
+                pieces = g._block_edge_pieces
             else:
-                edges = _edge_tensor(validate, self.graph.device)
-                index = EdgeIndex(edges, n)
-            for root, lv, pr in zip(np.atleast_1d(roots_np), levels, preds):
-                validate_bfs(edges, lv[:n], pr[:n], int(root), index=index)
-        return self._traced(out)
+                pieces = _slice_pieces(validate, g.mesh)
+            for root, lv, pr in zip(roots, levels, preds):
+                validate_bfs_group(pieces, lv[:n], pr[:n], int(root),
+                                   g.mesh.group)
+            return
+        if isinstance(validate, bool):
+            edges, index = g.edges, g.edge_index()
+        else:
+            edges = _edge_tensor(validate, g.device)
+            index = EdgeIndex(edges, n)
+        for root, lv, pr in zip(roots, levels, preds):
+            validate_bfs(edges, lv[:n], pr[:n], int(root), index=index)
 
     # ------------------------------------------------------------------
     # Frontier programs beyond BFS (DESIGN.md sec. 8)
@@ -664,6 +712,22 @@ class GraphSession:
                 eng, sources_np, *extra, recovery=recovery))
         return self._traced(self._algo_compiled(
             eng, key, sources_np.shape, extra)(sources_np))
+
+
+def _slice_pieces(edges, mesh):
+    """An equal, contiguous slice of a (2, E) edge array's columns for this
+    rank of `mesh` (rank r takes [r*E/world, (r+1)*E/world)), as a callable
+    returning its int64 (u, v) pieces on the mesh's device."""
+    E = edges.shape[1]
+    a0 = mesh.rank * E // mesh.world
+    a1 = (mesh.rank + 1) * E // mesh.world
+
+    def pieces():
+        for a in range(a0, a1, EDGE_PIECE):
+            b = min(a + EDGE_PIECE, a1)
+            yield tuple(_edge_tensor(edges[k, a:b], mesh.device).long()
+                        for k in range(2))
+    return pieces
 
 
 def _first(out):

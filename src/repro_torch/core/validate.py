@@ -15,10 +15,19 @@ Checks (on the global (level, pred) result and the input edge list):
 At Graph500 scale 26 the symmetrised edge list has 2^31 entries, so every
 pass over it runs in pieces, and rule 4's sorted edge keys are built once
 per graph (`EdgeIndex`), in pieces that fit beside the graph.
+
+Across a process group (`validate_bfs_group`) every rank holds the fetched
+(level, pred) and checks rules 4 and 5 over its own share of the edges
+only: rule 4 by marking the tree edges its share holds (an all_reduce
+merges the marks), and the first failing rule is agreed as a code (an
+all_reduce of the minimum) before every rank raises the same message, the
+JAX package's, in its order.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dist import multihost as MH
 
 # edges per elementwise pass: bounds the temporaries of one pass
 EDGE_PIECE = 1 << 27
@@ -73,11 +82,9 @@ class EdgeIndex:
         return found
 
 
-def validate_bfs(edges, level, pred, root: int, index: EdgeIndex = None):
-    """Raise AssertionError with a message on any rule violation.
-
-    edges: (2, E) tensor; level / pred: (n,) tensors on the same device;
-    index: the graph's EdgeIndex (built here when None)."""
+def _tree_rules(level, pred, root: int):
+    """Rules 1-3, which read only level and pred; returns the visited
+    vertices other than the root and their parents (int64)."""
     n = level.shape[0]
     _check(level[root] == 0, f"level[root]={int(level[root])}")
     _check(pred[root] == root, f"pred[root]={int(pred[root])}")
@@ -91,6 +98,16 @@ def validate_bfs(edges, level, pred, root: int, index: EdgeIndex = None):
     _check((p < n).all(), "parent id out of range")
     _check((level[p] >= 0).all(), "parent not visited")
     _check((level[w] == level[p] + 1).all(), "tree edge not level+1")
+    return w, p
+
+
+def validate_bfs(edges, level, pred, root: int, index: EdgeIndex = None):
+    """Raise AssertionError with a message on any rule violation.
+
+    edges: (2, E) tensor; level / pred: (n,) tensors on the same device;
+    index: the graph's EdgeIndex (built here when None)."""
+    n = level.shape[0]
+    w, p = _tree_rules(level, pred, root)
 
     # tree edges must exist in the graph (the input is symmetrised, so one
     # direction suffices)
@@ -105,6 +122,46 @@ def validate_bfs(edges, level, pred, root: int, index: EdgeIndex = None):
                "graph edge spans > 1 level")
         _check(not ((lu >= 0) ^ (lv >= 0)).any(),
                "edge joins visited and unvisited (incomplete BFS)")
+
+
+# rules checked over a rank's share of the edges, in the order the JAX
+# package checks them (the first failing one is reported); NONE = passed
+GROUP_RULES = ("tree edge not in graph", "graph edge spans > 1 level",
+               "edge joins visited and unvisited (incomplete BFS)")
+NONE = len(GROUP_RULES)
+
+
+def validate_bfs_group(pieces, level, pred, root: int, group=None):
+    """`validate_bfs` across a process group: raise AssertionError on every
+    rank, with the same message, on any rule violation.
+
+    pieces: a callable returning an iterator of (u, v) int64 tensor pieces
+    of this rank's share of the directed edges, on level's device (the
+    shares of all ranks together are the edge list); level / pred: the
+    whole (n,) outputs, the same on every rank; group: the ranks' process
+    group (None = the world).  Rules 1-3 read only level and pred, so
+    every rank reaches the same verdict alone; rule 4 marks the tree edges
+    (pred[v], v) the share holds and merges the marks over the group;
+    rule 5 checks the share.  Every rank then learns the first failing
+    rule by one all_reduce, so all raise together or none does."""
+    w, _ = _tree_rules(level, pred, root)
+    found = torch.zeros(level.shape[0], dtype=torch.uint8,
+                        device=level.device)
+    span = cross = False
+    for u, v in pieces():
+        tree = (pred[v].long() == u) & (v != root)
+        found[v[tree]] = 1
+        lu, lv = level[u], level[v]
+        both = (lu >= 0) & (lv >= 0)
+        span = span or bool(((lu - lv).abs() > 1)[both].any())
+        cross = cross or bool(((lu >= 0) ^ (lv >= 0)).any())
+    found = MH.all_reduce_max_u8(found, group)
+    codes = [k for k, bad in enumerate((not bool(found[w].all()), span,
+                                        cross)) if bad]
+    first = int(MH.all_reduce_i64([min(codes, default=NONE)], group,
+                                  op="min")[0])
+    if first < NONE:
+        raise AssertionError(GROUP_RULES[first])
 
 
 def validate_cc(edges, labels):

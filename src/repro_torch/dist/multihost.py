@@ -14,26 +14,39 @@ surface:
                     of processors [p*L, (p+1)*L), L = R*C / world -- the
                     devices process p owns in the JAX package's
                     `global_mesh` (all devices in process order, reshaped
-                    row-major).
+                    row-major).  With `processes=k` the mesh spans the
+                    first k ranks only, over a sub-group (the survivor
+                    grid of an elastic shrink, JAX's `jax.devices()[:R*C]`);
+                    every rank of the world calls it, the others get None.
   put_dev()         a host (R, C, ...) array -> this rank's (Rl, Cl, ...)
                     blocks on its device (every rank holds the same host
                     copy).
   put_replicated()  a host array whole on this rank's device.
   fetch()           this rank's (Rl, Cl, ...) blocks -> the whole
                     (R, C, ...) array on every rank (`process_allgather`).
+  raise_together()  one member's failure raised on every member, so no
+                    rank waits in a collective its peers never reach.
+  broadcast_tree()  a rank's output (dataclasses, tuples, tensors) to every
+                    rank of a group.
 
 The wire: every tensor crosses the group as a uint8 view of its contiguous
 bytes and is viewed back to its dtype on arrival -- bit-exact for every
 dtype, and gloo refuses uint16, uint32 and int16 tensors but takes uint8.
 Under gloo a CUDA tensor is staged through a host copy explicitly (nothing
 relies on gloo's CUDA support); under NCCL device tensors go to the
-collective as they are.  The sums (`all_reduce_i64`) travel as int64, which
-both backends take.
+collective as they are.  The reductions (`all_reduce_i64`) travel as int64,
+which both backends take; `all_reduce_max_u8` merges uint8 marks.
+
+A mesh's collectives run in its own process group (`ProcessMesh.group`,
+the world for `global_mesh()` without `processes=`), and its row and column
+groups are built with it, on every rank of the world in the same order
+(`new_group` is collective over the world).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+from typing import Any
 
 import numpy as np
 import torch
@@ -84,8 +97,18 @@ def shutdown() -> None:
     _STATE.update(device=None, backend=None)
 
 
+def is_initialized() -> bool:
+    """Has this process joined a process group (`initialize`)?"""
+    return dist.is_initialized()
+
+
 def is_multiprocess() -> bool:
     return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def current_device() -> torch.device:
+    """The device `initialize` bound this process to."""
+    return _STATE["device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +116,11 @@ class ProcessMesh:
     """The grid over the process group, and this rank's block of it.
 
     shape (R, C); the rank holds processors (i, j) with i0 <= i < i0 + Rl
-    and j0 <= j < j0 + Cl -- the row-major run [rank*L, (rank+1)*L)."""
+    and j0 <= j < j0 + Cl -- the row-major run [rank*L, (rank+1)*L).
+    `rank` and `world` count the mesh's members; `ranks` holds their
+    global ranks in mesh order, `group` their process group (None = the
+    world) and `groups` the row and column groups the topology
+    exchanges in."""
     shape: tuple
     axis_names: tuple
     rank: int
@@ -104,6 +131,10 @@ class ProcessMesh:
     Cl: int
     device: torch.device
     backend: str
+    ranks: tuple = ()
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    groups: Any = dataclasses.field(default=None, compare=False,
+                                    repr=False)
 
     @property
     def block_grid(self) -> tuple:
@@ -116,7 +147,35 @@ class ProcessMesh:
         return rank // nbc, rank % nbc
 
     def rank_of(self, bi: int, bj: int) -> int:
+        """The mesh rank holding block (bi, bj)."""
         return bi * self.block_grid[1] + bj
+
+    def global_rank(self, rank: int) -> int:
+        """Mesh rank -> its rank in the world."""
+        return self.ranks[rank] if self.ranks else rank
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """A mesh's process groups: one per block row (the ranks of a
+    processor-row) and one per block column."""
+    rows: list
+    cols: list
+
+
+def _new_group(ranks):
+    return dist.new_group(list(ranks))
+
+
+def _build_groups(shape, Rl, Cl, ranks) -> Groups:
+    """Every row group, then every column group, in the same order on every
+    rank of the world (`new_group` is collective over it)."""
+    nbr, nbc = shape[0] // Rl, shape[1] // Cl
+    rows = [_new_group(ranks[bi * nbc + bj] for bj in range(nbc))
+            for bi in range(nbr)]
+    cols = [_new_group(ranks[bi * nbc + bj] for bi in range(nbr))
+            for bj in range(nbc)]
+    return Groups(rows, cols)
 
 
 def block_shape(R: int, C: int, world: int) -> tuple:
@@ -138,20 +197,38 @@ def block_shape(R: int, C: int, world: int) -> tuple:
         f"divide C = {C} or be a multiple of it")
 
 
-def global_mesh(axis_shapes, axis_names=("r", "c")) -> ProcessMesh:
+def global_mesh(axis_shapes, axis_names=("r", "c"), *,
+                processes: int | None = None) -> ProcessMesh | None:
     """The grid's mesh over the joined process group (every rank builds
-    the same one)."""
+    the same one).
+
+    processes: the mesh spans the first `processes` ranks only (None =
+    every rank), over a group of their own -- the counterpart of a JAX
+    mesh over `jax.devices()[:R*C]`.  Every rank of the world must call
+    this (the groups are created collectively); a rank outside the mesh
+    gets None."""
     if not dist.is_initialized():
         raise RuntimeError("global_mesh needs a process group: call "
                            "multihost.initialize(...) first")
     R, C = (int(x) for x in axis_shapes)
-    world, rank = dist.get_world_size(), dist.get_rank()
+    full = dist.get_world_size()
+    world = full if processes is None else int(processes)
+    if not 1 <= world <= full:
+        raise ValueError(f"a mesh over {world} processes in a world of "
+                         f"{full}")
     Rl, Cl = block_shape(R, C, world)
+    ranks = tuple(range(world))
+    group = None if world == full else _new_group(ranks)
+    groups = _build_groups((R, C), Rl, Cl, ranks)
+    rank = dist.get_rank()
+    if rank >= world:
+        return None
     p0 = rank * Rl * Cl
     return ProcessMesh(shape=(R, C), axis_names=tuple(axis_names),
                        rank=rank, world=world, i0=p0 // C, j0=p0 % C,
                        Rl=Rl, Cl=Cl, device=_STATE["device"],
-                       backend=_STATE["backend"])
+                       backend=_STATE["backend"], ranks=ranks, group=group,
+                       groups=groups)
 
 
 def put_dev(x, mesh: ProcessMesh):
@@ -228,15 +305,29 @@ def exchange_pair(x: torch.Tensor, peer: int, group) -> torch.Tensor:
     return from_wire(buf, x, x.shape)
 
 
-def all_reduce_i64(values, group=None) -> torch.Tensor:
-    """The elementwise int64 sum of `values` (a tensor or ints) over the
-    group, as a host int64 tensor."""
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+        "max": dist.ReduceOp.MAX}
+
+
+def _reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """All-reduce `t` where the backend reads it (the card under NCCL, the
+    host under gloo); returns the result there."""
+    t = t.to(_STATE["device"]) if _STATE["backend"] == "nccl" else t.cpu()
+    dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
+
+
+def all_reduce_i64(values, group=None, op: str = "sum") -> torch.Tensor:
+    """The elementwise int64 reduction ("sum", "min" or "max") of `values`
+    (a tensor or ints) over the group, as a host int64 tensor."""
     t = torch.as_tensor(values).to(torch.int64).reshape(-1)
-    dev = _STATE["device"]
-    on_dev = _STATE["backend"] == "nccl"
-    t = t.to(dev) if on_dev else t.cpu()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t.cpu()
+    return _reduce(t, op, group).cpu()
+
+
+def all_reduce_max_u8(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise maximum of a uint8 (or bool, as uint8) tensor over
+    the group, on x's device."""
+    return _reduce(x.to(torch.uint8), "max", group).to(x.device)
 
 
 def fetch(x, mesh: ProcessMesh | None = None):
@@ -245,7 +336,7 @@ def fetch(x, mesh: ProcessMesh | None = None):
     if mesh is None or not isinstance(x, torch.Tensor):
         return x
     nbr, nbc = mesh.block_grid
-    g = all_gather(x, None, mesh.world)       # (world, Rl, Cl, ...)
+    g = all_gather(x, mesh.group, mesh.world)     # (world, Rl, Cl, ...)
     g = g.reshape((nbr, nbc, mesh.Rl, mesh.Cl) + tuple(x.shape[2:]))
     return g.transpose(1, 2).reshape(mesh.shape + tuple(x.shape[2:]))
 
@@ -253,3 +344,90 @@ def fetch(x, mesh: ProcessMesh | None = None):
 def fetch_all(xs, mesh: ProcessMesh | None = None) -> tuple:
     """`fetch` over a tuple of outputs."""
     return tuple(fetch(x, mesh) for x in xs)
+
+
+# ----------------------------------------------------------------------------
+# Agreement: decisions every rank takes together
+# ----------------------------------------------------------------------------
+
+def _src(group, rank: int) -> int:
+    """A group rank -> its rank in the world (broadcasts name the world's)."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def broadcast_object(obj, group=None, src: int = 0):
+    """Group rank `src`'s picklable `obj` on every member (the others pass
+    anything)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_src(group, src), group=group)
+    return box[0]
+
+
+def gather_objects(obj, group=None) -> list:
+    """Every member's picklable `obj`, in group-rank order, on every
+    member."""
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, obj, group=group)
+    return every
+
+
+def raise_together(err: BaseException | None, group=None) -> None:
+    """Every member of `group` passes its own outcome (None = no failure);
+    when any member failed, every member raises the same RuntimeError,
+    naming the lowest failing rank and its error (that rank's chained to
+    it).  So a failure on one rank stops its peers too, instead of leaving
+    them in a collective it never reaches."""
+    mine = None if err is None else f"{type(err).__name__}: {err}"
+    for r, msg in enumerate(gather_objects(mine, group)):
+        if msg is not None:
+            raise RuntimeError(f"rank {r} of the process group failed: "
+                               f"{msg}") from err
+    return None
+
+
+class _Tensor:
+    """A tensor's place in a broadcast tree: its shape and dtype."""
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype = tuple(t.shape), t.dtype
+
+
+def _map_leaves(x, fn, kind):
+    """x with every leaf of type `kind` replaced by fn(leaf), through
+    dataclasses, dicts, lists and tuples, in one fixed order."""
+    if isinstance(x, kind):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _map_leaves(getattr(x, f.name), fn, kind)
+            for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, dict):
+        return {k: _map_leaves(v, fn, kind) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map_leaves(v, fn, kind) for v in x)
+    return x
+
+
+def broadcast_tree(tree, device, group=None, src: int = 0):
+    """Group rank `src`'s `tree` (an output dataclass, tuples, dicts, lists
+    of tensors and picklable values) on every member of `group`, its
+    tensors on `device`.  The structure travels pickled, every tensor as
+    its bytes on the uint8 wire, in the structure's order."""
+    mine = dist.get_rank(group) == src
+    tensors = []
+    if mine:
+        tree = _map_leaves(tree, lambda t: tensors.append(t) or _Tensor(t),
+                           torch.Tensor)
+    skel = broadcast_object(tree if mine else None, group, src)
+    sent = iter(tensors)
+
+    def receive(spec):
+        like = torch.empty(0, dtype=spec.dtype, device=device)
+        if mine:
+            buf = to_wire(next(sent).to(device))
+        else:
+            buf = wire_buffer(int(np.prod(spec.shape, dtype=np.int64))
+                              * like.element_size(), like)
+        dist.broadcast(buf, src=_src(group, src), group=group)
+        return from_wire(buf, like, spec.shape)
+    return _map_leaves(skel, receive, _Tensor)

@@ -21,7 +21,7 @@ processor (i, j) at `local.loc(i, j)`.  The three collectives:
 `StackedTopology` holds the whole grid on one device (the block is the
 grid) and the collectives are tensor operations.  `GroupTopology` holds one
 rank's block of a `torch.distributed` group (`dist.multihost`) and the
-collectives are real transfers within the row and column groups it builds;
+collectives are real transfers within the row and column groups of its mesh;
 `fetch` gathers the grid-wide outputs to every rank.
 """
 from __future__ import annotations
@@ -30,7 +30,6 @@ import dataclasses
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.types import Grid2D
 from repro_torch.dist import multihost as MH
@@ -121,29 +120,13 @@ class StackedTopology:
         grid)."""
         return int(value)
 
+    def totals(self, values) -> list:
+        return [int(v) for v in values]
+
     def fetch(self, x):
         """Per-processor (R, C, ...) blocks -> the whole grid's (the
         identity here)."""
         return x
-
-
-@dataclasses.dataclass(frozen=True)
-class _Groups:
-    """A group topology's process groups, built once: one per block row
-    (the ranks of a processor-row) and one per block column."""
-    rows: list
-    cols: list
-
-
-def _build_groups(mesh) -> _Groups:
-    """Every row group, then every column group, in the same order on every
-    rank (`new_group` is collective over the world)."""
-    nbr, nbc = mesh.block_grid
-    rows = [dist.new_group([mesh.rank_of(bi, bj) for bj in range(nbc)])
-            for bi in range(nbr)]
-    cols = [dist.new_group([mesh.rank_of(bi, bj) for bi in range(nbr)])
-            for bj in range(nbc)]
-    return _Groups(rows, cols)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -151,15 +134,14 @@ class GroupTopology:
     """One rank's block of the grid over a `torch.distributed` group.
 
     mesh: the `multihost.ProcessMesh` (grid shape, rank, world, the rank's
-    block).  The row and column groups are built when the topology is made
-    and shared by `with_exchange`'s copies.  Every collective goes through
-    its group even when the group has one member, so a world of one rank
-    takes the path a multi-card run takes."""
+    block, its process group and its row and column groups, built with the
+    mesh and shared by every topology over it).  Every collective goes
+    through its group even when the group has one member, so a world of
+    one rank takes the path a multi-card run takes."""
     grid: Grid2D
     mesh: Any
     exchange: ExchangeStrategy = dataclasses.field(
         default_factory=FlatExchange)
-    groups: Any = None
     distributed = True
 
     def __post_init__(self):
@@ -167,8 +149,10 @@ class GroupTopology:
         if (self.grid.R, self.grid.C) != (R, C):
             raise ValueError(f"grid {self.grid.R}x{self.grid.C} does not "
                              f"match the process mesh's {R}x{C}")
-        if self.groups is None:
-            object.__setattr__(self, "groups", _build_groups(self.mesh))
+
+    @property
+    def groups(self):
+        return self.mesh.groups
 
     @property
     def device(self) -> torch.device:
@@ -230,7 +214,7 @@ class GroupTopology:
             perm = torch.arange(m.Cl, device=part.device) ^ step
             return part[:, perm]
         bi, bj = m.block_of(m.rank)
-        peer = m.rank_of(bi, bj ^ (step // m.Cl))
+        peer = m.global_rank(m.rank_of(bi, bj ^ (step // m.Cl)))
         return MH.exchange_pair(part, peer, self.row_group)
 
     def with_exchange(self, strategy) -> "GroupTopology":
@@ -240,12 +224,17 @@ class GroupTopology:
         """Sum of a per-processor (Rl, Cl) quantity over the whole grid: an
         int64 all_reduce over the world, wrapped to x's dtype as JAX's
         psum wraps int32."""
-        s = MH.all_reduce_i64(x.sum(dtype=torch.int64))
+        s = MH.all_reduce_i64(x.sum(dtype=torch.int64), self.mesh.group)
         return s[0].to(x.device).to(x.dtype)
 
     def total(self, value: int) -> int:
         """A per-rank Python int summed over the group (exact, int64)."""
-        return int(MH.all_reduce_i64([int(value)])[0])
+        return self.totals([value])[0]
+
+    def totals(self, values) -> list:
+        """Per-rank Python ints summed over the group, one all_reduce."""
+        return MH.all_reduce_i64([int(v) for v in values],
+                                 self.mesh.group).tolist()
 
     def fetch(self, x):
         """This rank's (Rl, Cl, ...) blocks -> the whole (R, C, ...) array,

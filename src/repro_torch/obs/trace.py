@@ -1,5 +1,5 @@
 """In-program per-level traces (DESIGN.md sec. 13), the port of
-`repro/obs/trace.py` on the stacked grid.
+`repro/obs/trace.py`.
 
 When a session's `BFSConfig(telemetry=True)`, the `FrontierEngine` keeps
 the per-level record built here beside each search and `assemble_traces`
@@ -19,7 +19,8 @@ turns it into one host `LevelTrace` per search.  Per level, per processor:
   dir         direction the level ran (0 top-down / 1 bottom-up)
 
 The device side is one (R, C, levels) tensor per channel on the search's
-device.  After every step the level loop writes slot min(k, L-1) of each
+device -- (Rl, Cl, levels) across a process group, the rank's block.
+After every step the level loop writes slot min(k, L-1) of each
 (L = max_levels): copies from the step's device tensors, fills from the
 values the host already holds (the frontier total it read, the static wire
 and message counts, the direction), so telemetry adds no host read per
@@ -27,7 +28,9 @@ level.  The tensors hold min(L, 64) levels at first and double, up to L,
 when a search runs past them: the value programs bound their loops by
 L = n + 1, and P * (n + 1) slots a channel would not fit beside a SCALE 26
 graph.  `assemble_traces` reads each search's levels once, at the end, and
-builds the `LevelTrace` with numpy as the JAX package does.  JAX's
+builds the `LevelTrace` with numpy as the JAX package does; across a
+process group it fetches every rank's channels in that one read (the JAX
+engine's `fetch_all`), so every rank builds the same trace.  JAX's
 uint32 channels (`scanned`, `wire`) are int64 tensors here, wrapped modulo
 2^32 where JAX wraps.  Telemetry is off by default, keyed into every engine
 cache, and outputs are identical either way.
@@ -55,12 +58,13 @@ _DTYPES = {"frontier": torch.int32, "front_dev": torch.int32,
 # Device side: the per-search record
 # ----------------------------------------------------------------------------
 
-def init_trace(max_levels: int, grid, device) -> dict:
-    """Fresh per-search trace: every channel (R, C, min(max_levels, 64)) on
-    `device`, `dir` at -1 (unused level); the host level counter k and the
-    bound L = max_levels."""
+def init_trace(max_levels: int, block, device) -> dict:
+    """Fresh per-search trace: every channel (Rl, Cl, min(max_levels, 64))
+    on `device` (block: the (Rl, Cl) processors recorded, a grid's whole
+    (R, C) on the stacked grid), `dir` at -1 (unused level); the host
+    level counter k and the bound L = max_levels."""
     L = int(max_levels)
-    shape = (grid.R, grid.C, min(L, FIRST_LEVELS))
+    shape = (int(block[0]), int(block[1]), min(L, FIRST_LEVELS))
     tr = {c: torch.full(shape, -1 if c == "dir" else 0, dtype=dt,
                         device=device) for c, dt in _DTYPES.items()}
     tr["k"] = 0
@@ -88,10 +92,10 @@ def normalize_aux(aux: "dict | None") -> dict:
 def record_level(tr: dict, *, frontier, front_dev, scanned, aux) -> dict:
     """Record one level at slot min(k, L-1), in place; returns the carry.
 
-    frontier: the global count (int); front_dev: (R, C) tensor; scanned:
-    (P,) or (R, C) tensor of per-processor edges; aux: `normalize_aux`'s
-    dict, each entry an int (the same on every processor) or an (R, C)
-    tensor."""
+    frontier: the global count (int); front_dev: (Rl, Cl) tensor; scanned:
+    (Rl * Cl,) or (Rl, Cl) tensor of per-processor edges; aux:
+    `normalize_aux`'s dict, each entry an int (the same on every
+    processor) or an (Rl, Cl) tensor."""
     k = min(tr["k"], tr["L"] - 1)
     if k >= tr["dir"].shape[-1]:
         _grow(tr)
@@ -187,21 +191,26 @@ def _one_trace(chans, k, *, grid, program, codec) -> LevelTrace:
         direction=np.asarray(chans["dir"][0, :n], np.int32))
 
 
-def assemble_traces(traw, B, *, grid, program: str, codec: str):
+def assemble_traces(traw, B, *, grid, program: str, codec: str,
+                    fetch=None):
     """Per-search trace outputs -> LevelTrace (B=None) or a tuple of B.
 
     `traw` holds one `trace_outputs` tuple per search (one for a scalar
-    search): every channel (R, C, levels) on the device, then k.  The
+    search): every channel (Rl, Cl, levels) on the device, then k.  The
     levels a search recorded (min(k, levels); a clamped search filled all
-    L) are read to the host in one copy a search.  `frontier` / `dir` are
-    the same on every processor, so processor 0's row is the global
-    figure; the work channels are per processor and sum to the global
-    figures."""
+    L) are read to the host in one copy a search, after `fetch` (the
+    topology's: a rank's blocks -> the whole grid's, on every rank; None
+    = the record is the whole grid's).  `frontier` / `dir` are the same
+    on every processor, so processor 0's row is the global figure; the
+    work channels are per processor and sum to the global figures."""
     traces = []
     for t in traw:
         n = min(int(t[-1]), t[0].shape[-1])
-        host = torch.stack([a[:, :, :n].to(torch.int64)
-                            for a in t[:-1]]).cpu().numpy()
+        chans = torch.stack([a[:, :, :n].to(torch.int64) for a in t[:-1]],
+                            dim=2)                  # (Rl, Cl, 7, n)
+        if fetch is not None:
+            chans = fetch(chans)                    # (R, C, 7, n)
+        host = chans.movedim(2, 0).cpu().numpy()
         traces.append(_one_trace(
             {c: host[ci].reshape(-1, n) for ci, c in
              enumerate(TRACE_CHANNELS)}, t[-1], grid=grid, program=program,

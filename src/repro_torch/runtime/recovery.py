@@ -26,6 +26,17 @@ between segments.  This module is the driver around it:
                        on the same device and resume from the last
                        completed level.
 
+Across a process group (`DistGraph.from_edges(..., mesh=)`) every rank
+drives the same loop: the level count an injected loss checks is the
+group's, so every rank fails and retries the same segment, and the retry
+delays are a pure function of (seed, step, attempt).  A checkpoint is
+written by the mesh's rank 0 alone (synchronously), in the same layout,
+and its outcome reaches every rank before any goes on (`multihost.
+raise_together`); every rank loads the same directory, which must be one
+filesystem the ranks share.  The elastic coordinator plans across the
+group as the JAX package's plans across `jax.devices()`, the survivor grid
+on the first ranks (see `ElasticCoordinator`).
+
 Bit-identity contract: segment boundaries add no arithmetic and no host
 read, so segmented outputs equal the unsegmented loop's for every
 ckpt_every; a same-grid resume is bit-identical including BFS
@@ -248,13 +259,33 @@ def run_segmented(engine, graph, arg, *extra, B=None, n=None, plan=None):
                     time.perf_counter() - t_ref)
                 awaiting_first = False
             if plan.checkpointer is not None:
-                plan.checkpointer.save(engine.export_carry(carry, n=n, B=B))
+                _save_together(plan.checkpointer,
+                               engine.export_carry(carry, n=n, B=B),
+                               engine.topo)
     finally:
         plan.stats["retries"] += runner.retries
         plan.stats["delays"].extend(runner.delays)
     if plan.checkpointer is not None:
         plan.checkpointer.join()
     return engine.ft_finish(carry, B=B)
+
+
+def _save_together(checkpointer, snap, topo) -> None:
+    """Persist a snapshot: on the stacked grid through the checkpointer as
+    it is; across a process group by the mesh's rank 0 alone, waited for,
+    its outcome raised on every rank together."""
+    if not topo.distributed:
+        checkpointer.save(snap)
+        return
+    from repro_torch.dist import multihost
+    err = None
+    if topo.mesh.rank == 0:
+        try:
+            checkpointer.save(snap)
+            checkpointer.join()
+        except Exception as e:          # noqa: BLE001 -- raised together
+            err = e
+    multihost.raise_together(err, topo.mesh.group)
 
 
 class ElasticCoordinator:
@@ -266,13 +297,25 @@ class ElasticCoordinator:
     resumes the query from the loss snapshot.  `max_shrinks` bounds the
     repeated-loss drill.
 
-    The JAX package keeps the edges on the host and re-plans onto a
-    sub-mesh; here every grid is stacked on `device` (None = CUDA, as the
-    session entry points), so the coordinator re-plans on the same device.
-    `edges` may be a tensor already there: it is kept as it is (no second
-    copy), and every plan partitions from it without a host transfer.  The
-    session and graph of a failed attempt are released before the next
-    plan, so at most one partitioned graph is resident at a time.
+    Without a process group every grid is stacked on `device` (None =
+    CUDA, as the session entry points), so the coordinator re-plans on the
+    same device.  `edges` may be a tensor already there: it is kept as it
+    is (no second copy), and every plan partitions from it without a host
+    transfer.  The session and graph of a failed attempt are released
+    before the next plan, so at most one partitioned graph is resident at
+    a time.
+
+    In an initialised process group (`multihost.initialize`), every rank
+    of the world constructs and runs the coordinator alike, and it plans
+    as the JAX package's does across `jax.devices()`: the first grid over
+    the whole group, L = R0*C0 / world processors a rank, and every later
+    grid over the first R*C / L ranks (`multihost.global_mesh(...,
+    processes=)`, JAX's `jax.devices()[:R*C]`), each rank of it planning
+    its blocks from the host edge list (streamed) on its device.  A grid
+    whose R*C is not a multiple of L raises ValueError on every rank.  The
+    ranks outside a survivor grid wait; rank 0 then tells every rank how
+    the attempt ended, and hands its output (and the plan's stats) to
+    every rank, so every rank returns the same result.
 
     The session/graph are rebuilt per shrink, so `run` takes the QUERY,
     not a session: the method name plus its argument.
@@ -284,9 +327,11 @@ class ElasticCoordinator:
         import torch
 
         from repro_torch.core.types import resolve_device
-        self.device = resolve_device(device)
+        from repro_torch.dist import multihost
+        self.group = multihost.is_initialized()
+        self.device = None if self.group else resolve_device(device)
         self.edges = edges if isinstance(edges, torch.Tensor) \
-            else np.asarray(edges)
+            or self.group else np.asarray(edges)
         self.config = config
         self.weights = weights
         self.n = n
@@ -294,11 +339,23 @@ class ElasticCoordinator:
         self.shrinks = 0            # shrinks performed by the last run()
         self.grids = []             # grid trajectory of the last run()
 
-    def _plan(self, config):
+    def _mesh(self, R: int, C: int, per_rank: int):
+        """The process mesh of a (R, C) grid over the first R*C / per_rank
+        ranks (every rank calls this; None on a rank outside it)."""
+        from repro_torch.dist import multihost
+        if (R * C) % per_rank:
+            raise ValueError(
+                f"the survivor grid {R}x{C} holds {R * C} processors, not a "
+                f"multiple of the {per_rank} each rank holds, so no set of "
+                f"whole ranks carries it")
+        return multihost.global_mesh((R, C), processes=R * C // per_rank)
+
+    def _plan(self, config, mesh=None):
         from repro_torch.api.session import DistGraph
 
-        graph = DistGraph.from_edges(self.edges, config, device=self.device,
-                                     n=self.n, weights=self.weights)
+        graph = DistGraph.from_edges(self.edges, config, mesh=mesh,
+                                     device=self.device, n=self.n,
+                                     weights=self.weights)
         try:
             return graph.session()
         except ValueError:
@@ -308,12 +365,14 @@ class ElasticCoordinator:
             graph.config = dataclasses.replace(config, exchange="flat")
             return graph.session()
 
-    def _attempt(self, config, method: str, args, plan, kw, last: bool):
+    def _attempt(self, config, method: str, args, plan, kw, last: bool,
+                 mesh=None):
         """One planned grid: (True, output), or (False, (snapshot, level,
         failed)) after an UnrecoverableLoss.  The session, the graph and
         the exception's frames die with this call, so the next plan does
         not meet them on the device."""
-        sess = self._plan(config)
+        sess = self._plan(config) if mesh is None \
+            else self._plan(config, mesh)
         try:
             return True, getattr(sess, method)(*args, recovery=plan, **kw)
         except UnrecoverableLoss as e:
@@ -337,13 +396,28 @@ class ElasticCoordinator:
         plan = plan if plan is not None else RecoveryPlan()
         config = self.config
         R0, C0 = config.resolve_grid(1).R, config.resolve_grid(1).C
+        per_rank = None
+        if self.group:
+            import torch.distributed as dist
+            per_rank = (R0 * C0) // dist.get_world_size()
+            if per_rank < 1 or per_rank * dist.get_world_size() != R0 * C0:
+                raise ValueError(
+                    f"the {R0}x{C0} grid does not split over the "
+                    f"{dist.get_world_size()} ranks of the process group")
         failed_total = 0
         self.shrinks = 0
         self.grids = [(R0, C0)]
         args = () if arg is None else (arg,)
+        R, C = R0, C0
         while True:
-            done, res = self._attempt(config, method, args, plan, kw,
-                                      last=self.shrinks >= self.max_shrinks)
+            last = self.shrinks >= self.max_shrinks
+            if per_rank is None:
+                done, res = self._attempt(config, method, args, plan, kw,
+                                          last=last)
+            else:
+                done, res = self._group_attempt(
+                    config, method, args, plan, kw, last,
+                    self._mesh(R, C, per_rank), whole=(R, C) == (R0, C0))
             if done:
                 return res
             snapshot, _, failed = res
@@ -357,3 +431,53 @@ class ElasticCoordinator:
             plan.resume = snapshot
             self.shrinks += 1
             self.grids.append((R, C))
+
+    def _group_attempt(self, config, method, args, plan, kw, last, mesh,
+                       whole: bool):
+        """One grid across the process group: the ranks of `mesh` run the
+        attempt (a rank outside it has mesh None and waits), then every
+        rank learns how it ended -- done, a loss to shrink after (the
+        failed count; the members hold the snapshot), the final
+        UnrecoverableLoss, or an error -- from rank 0 (a member of every
+        grid), and, unless every rank ran the attempt (`whole`), rank 0
+        hands its output (or its final snapshot) and the plan's stats to
+        every rank."""
+        from repro_torch.dist import multihost
+        status, res = None, None
+        if mesh is not None:
+            try:
+                done, res = self._attempt(config, method, args, plan, kw,
+                                          last, mesh)
+                status = ("done",) if done else ("loss", res[2])
+            except UnrecoverableLoss as e:
+                status, res = ("unrecoverable", e.level, e.failed), e
+            except Exception as e:      # noqa: BLE001 -- raised together
+                status, res = ("error", f"{type(e).__name__}: {e}"), e
+        every = multihost.gather_objects(status)
+        for r, st in enumerate(every):
+            if st is not None and st[0] == "error":
+                if status is not None and status[0] == "error":
+                    raise res
+                raise RuntimeError(f"rank {r} of the process group failed: "
+                                   f"{st[1]}")
+        status = every[0]
+        if status[0] == "loss":
+            return False, (res if mesh is not None
+                           else (None, None, status[1]))
+        if status[0] == "unrecoverable":
+            snap = None
+            if not whole:
+                snap = multihost.broadcast_object(
+                    res.snapshot if mesh is not None and mesh.rank == 0
+                    else None)
+            if mesh is not None:
+                raise res
+            raise UnrecoverableLoss(snap, status[1], status[2])
+        if whole:
+            return True, res
+        out, stats = multihost.broadcast_tree(
+            (res, dict(plan.stats)) if mesh is not None and mesh.rank == 0
+            else None, multihost.current_device())
+        plan.stats.clear()
+        plan.stats.update(stats)
+        return True, out

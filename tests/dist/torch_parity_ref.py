@@ -55,12 +55,14 @@ tests/dist/torch_run_multihost.py with the codec passed to every query:
 `connected_components()` under "{tag}_cc_*", `sssp(roots[-1])` under
 "{tag}_sssp_*" and `multi_bfs(roots)` under "{tag}_mbfs_*" (tag =
 "{RxC}_{direction}_{codec}").  With --cover only top-down under list and
-adaptive under bitmap and delta.
+adaptive under bitmap and delta; with --traced only top-down under list
+and adaptive under bitmap (with --telemetry: the traces a process group
+is held to).
 
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
 [--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills]
-[--multihost [--cover]] (GRID = RxC).  EDGES.npz holds `edges` (2, E),
-`roots` (B,) and `n`.
+[--multihost [--cover | --traced]] (GRID = RxC).  EDGES.npz holds
+`edges` (2, E), `roots` (B,) and `n`.
 """
 import dataclasses
 import os
@@ -71,11 +73,12 @@ EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
     else "flat"
 FT_DIR = OPTS[OPTS.index("--ft") + 1] if "--ft" in OPTS else None
 FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE,
-         "--ft", FT_DIR, "--drills", "--multihost", "--cover")
+         "--ft", FT_DIR, "--drills", "--multihost", "--cover", "--traced")
 MULTIHOST = "--multihost" in OPTS
 MULTIHOST_CONFIGS = [(False, "list"), (True, "bitmap"), (True, "delta")] \
-    if "--cover" in OPTS else [(d, c) for d in (False, True)
-                               for c in ("list", "bitmap", "delta")]
+    if "--cover" in OPTS else [(False, "list"), (True, "bitmap")] \
+    if "--traced" in OPTS else [(d, c) for d in (False, True)
+                                for c in ("list", "bitmap", "delta")]
 ARGS = [a for a in OPTS if a not in FLAGS]
 DRILLS = "--drills" in OPTS
 DIRECTION = "--direction" in OPTS

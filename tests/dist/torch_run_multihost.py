@@ -2,8 +2,11 @@
 held to the JAX package (the port's `tests/dist/run_multihost.py`).
 
     torch_run_multihost.py NPROC LOCAL [EXCHANGE] [--grid RxC]
-                           [--mode queries|collectives|surface]
-                           [--configs all|td|adaptive|cover] [--ref REF.npz]
+                           [--mode queries|collectives|surface|features|
+                                   resume]
+                           [--configs all|td|adaptive|cover|traced]
+                           [--telemetry] [--ft] [--sections S,...]
+                           [--ftdir DIR] [--ref REF.npz]
                            [--device cpu|cuda] [--scale S] [--timeout S]
 
 NPROC ranks, LOCAL processors each, join a gloo group (a `file://` store in
@@ -23,11 +26,15 @@ bfs([1, 5, 3]), connected_components(), sssp(3), multi_bfs([1, 5, 3]),
 each with the codec.  --configs: "all" (default) is top-down and adaptive
 under each codec; "cover" is top-down under list, adaptive under bitmap
 and under delta (adaptive runs top-down levels too, so every codec's set
-and value folds travel).  Every rank writes its outputs; every field of every
-rank must equal the reference: the JAX package's outputs
-(`torch_parity_ref.py --multihost`, run in a child on forced host devices,
-or read from --ref), or with `--device cuda` the port's stacked session on
-the card.
+and value folds travel); "traced" is top-down under list and adaptive under
+bitmap.  --telemetry runs every session with telemetry=True and adds every
+query's `LevelTrace`, field by field ("{key}_trace{b}_{field}"); --ft runs
+every query fault-tolerant (ckpt_every=2) under a transient loss crossing
+level 3, its retries under "{key}_retries".  Every rank writes its outputs;
+every field of every rank must equal the reference: the JAX package's
+outputs (`torch_parity_ref.py --multihost [--telemetry]`, run in a child on
+forced host devices, or read from --ref), or with `--device cuda` the
+port's stacked session on the card.
 
 --mode collectives: every rank holds `GroupTopology.row_gather`,
 `col_all_to_all` (flat and butterfly), `psum_all` and `fetch` to
@@ -38,14 +45,35 @@ lies on another rank are pairwise exchanges.
 
 --mode surface: `DistGraph.from_partition(..., mesh=)` keeps this rank's
 blocks of a whole-grid partition and answers as the `from_edges` graph
-does; in the group, telemetry, fault tolerance, recovery=,
-bfs(validate=...) and GraphServer raise NotImplementedError naming ROADMAP
-A13 part 2.
+does; in the group GraphServer raises NotImplementedError naming ROADMAP
+A13 part 3.
+
+--mode features (edge_chunk 512, the comma-separated --sections, each
+rank writing its outputs to rank{k}.npz and its messages to rank{k}.json,
+which the caller holds to the JAX package's `torch_parity_ref.py --ft`
+run): "validate" -- bfs(validate=True | edges) passing, then every
+CORRUPTIONS entry of one output checked against both shares, and "released"
+after release_edges(); "segmented" -- every query of FT_CONFIGS with
+fault_tolerance=True, ckpt_every 1 and 2, equal to the unsegmented group
+run on the rank and written under "seg{K}_{config}_{query}_*" (the
+unsegmented under "ft_{config}_{query}_*"), and a transient loss crossing
+level 3 retried once; "snapshots" -- every SNAP_CASES query under a
+persistent loss with a checkpoint directory FTDIR/torch_{RxC}_{tag} (rank
+0 writes it), the UnrecoverableLoss snapshot under "snap_{tag}/..." and its
+meta in the json; "elastic" -- ElasticCoordinator on the group for every
+ELASTIC_CASES entry (grids and stats in the json); "refusal" -- the shrink
+to 1x3 over ranks of two processors, whose ValueError message goes to the
+json.
+
+--mode resume: every rank loads the JAX package's checkpoint directories
+FTDIR/jax_{RxC}_{tag} of SNAP_CASES and resumes each in the group, under
+"ftx_{tag}_*".
 
 Every group launch has a deadline (--timeout, default 240 s): on expiry
 every rank is killed and the script fails.  Prints "OK" on success.
 """
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -60,11 +88,31 @@ CONFIGS = {"td": [(False, c) for c in ("list", "bitmap", "delta")],
            "adaptive": [(True, c) for c in ("list", "bitmap", "delta")]}
 CONFIGS["all"] = CONFIGS["td"] + CONFIGS["adaptive"]
 CONFIGS["cover"] = [(False, "list"), (True, "bitmap"), (True, "delta")]
+CONFIGS["traced"] = [(False, "list"), (True, "bitmap")]
 FIELDS = {"bfs1": ("level", "pred", "n_levels"),
           "bfs": ("level", "pred", "n_levels"),
           "cc": ("labels", "n_iters"), "sssp": ("dist", "n_iters"),
           "mbfs": ("level", "src", "n_levels")}
-A13_2 = "ROADMAP A13 part 2"
+A13_3 = "ROADMAP A13 part 3"
+# --mode features: the queries of `torch_parity_ref.py --ft` (its
+# QUERY_FIELDS and query_arg), the configs of the segmented runs, the
+# snapshot and elastic cases (its cases.json) and the corruptions
+METHODS = {"bfs1": "bfs", "bfs": "bfs", "cc": "connected_components",
+           "sssp": "sssp", "mbfs": "multi_bfs"}
+FT_CHUNK = 512
+FT_CONFIGS = [(False, "list"), (True, "bitmap")]
+SNAP_CASES = (
+    [{"tag": f"{q}_td", "query": q, "direction": False, "codec": "list",
+      "at": 3, "telemetry": False} for q in ("bfs", "cc", "sssp", "mbfs")]
+    + [{"tag": "bfs_dir", "query": "bfs", "direction": True,
+        "codec": "bitmap", "at": 4, "telemetry": False},
+       {"tag": "cc_td_tel", "query": "cc", "direction": False,
+        "codec": "list", "at": 3, "telemetry": True}])
+ELASTIC_CASES = [{"tag": "bfs", "query": "bfs", "kind": "persistent"},
+                 {"tag": "cc", "query": "cc", "kind": "persistent"}]
+CORRUPTIONS = ("root", "visited", "level+1", "tree edge", "span",
+               "incomplete")
+SECTIONS = ("validate", "segmented", "snapshots", "elastic")
 
 
 def parse(argv):
@@ -74,7 +122,12 @@ def parse(argv):
     ap.add_argument("exchange", nargs="?", default="flat")
     ap.add_argument("--grid", default=None)
     ap.add_argument("--mode", default="queries",
-                    choices=("queries", "collectives", "surface"))
+                    choices=("queries", "collectives", "surface", "features",
+                             "resume"))
+    ap.add_argument("--telemetry", action="store_true")
+    ap.add_argument("--ft", action="store_true")
+    ap.add_argument("--sections", default=",".join(SECTIONS))
+    ap.add_argument("--ftdir", default=None)
     ap.add_argument("--configs", default="all", choices=sorted(CONFIGS))
     ap.add_argument("--ref", default=None)
     ap.add_argument("--device", default="cpu")
@@ -111,17 +164,37 @@ def exchanges(spec):
     return ("flat", "butterfly") if spec == "both" else (spec,)
 
 
-def run_queries(graph, configs, grid, exchange):
+def host(x):
+    import numpy as np
+    import torch
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def put_output(out, key, r, fields):
+    """An output's fields (and edges, directions, traces) under `key`."""
+    import dataclasses
+
+    import numpy as np
+    for f in fields:
+        out[f"{key}_{f}"] = host(getattr(r, f))
+    out[f"{key}_edges"] = np.asarray(r.edges_scanned, np.int64)
+    if r.directions is not None:
+        out[f"{key}_directions"] = host(r.directions)
+    if r.trace is not None:
+        traces = r.trace if isinstance(r.trace, tuple) else (r.trace,)
+        for b, tr in enumerate(traces):
+            for f in dataclasses.fields(tr):
+                out[f"{key}_trace{b}_{f.name}"] = np.asarray(
+                    getattr(tr, f.name))
+
+
+def run_queries(graph, configs, grid, exchange, telemetry=False, ft=False):
     """Every config's queries through the session API -> {key: numpy}, the
     keys of `torch_parity_ref.py --multihost` after "{exchange}:"."""
     import numpy as np
-    import torch
 
     from repro_torch.api import BFSConfig
-
-    def host(x):
-        return x.cpu().numpy() if isinstance(x, torch.Tensor) \
-            else np.asarray(x)
+    from repro_torch.runtime import DeviceLossInjector, RecoveryPlan
 
     out = {}
     R, C = grid
@@ -129,20 +202,86 @@ def run_queries(graph, configs, grid, exchange):
     for ex, (direction, codec) in ((e, c) for e in exchanges(exchange)
                                    for c in configs):
         s = graph.session(BFSConfig(grid=grid, direction=direction,
-                                    fold_codec=codec, exchange=ex))
+                                    fold_codec=codec, exchange=ex,
+                                    telemetry=telemetry, fault_tolerance=ft,
+                                    ckpt_every=2))
         tag = f"{ex}:{R}x{C}_{dtag(direction)}_{codec}"
-        res = {"bfs1": s.bfs(ROOT), "bfs": s.bfs(roots),
-               "cc": s.connected_components(fold_codec=codec),
-               "sssp": s.sssp(ROOT, fold_codec=codec),
-               "mbfs": s.multi_bfs(roots, fold_codec=codec)}
+        plans = {}
+
+        def kw(q):
+            if not ft:
+                return {}
+            plans[q] = RecoveryPlan(injector=DeviceLossInjector(
+                3, transient=True))
+            return {"recovery": plans[q]}
+        res = {"bfs1": s.bfs(ROOT, **kw("bfs1")),
+               "bfs": s.bfs(roots, **kw("bfs")),
+               "cc": s.connected_components(fold_codec=codec, **kw("cc")),
+               "sssp": s.sssp(ROOT, fold_codec=codec, **kw("sssp")),
+               "mbfs": s.multi_bfs(roots, fold_codec=codec, **kw("mbfs"))}
         for q, r in res.items():
-            for f in FIELDS[q]:
-                out[f"{tag}_{q}_{f}"] = host(getattr(r, f))
-            out[f"{tag}_{q}_edges"] = np.asarray(r.edges_scanned, np.int64)
-            if r.directions is not None:
-                out[f"{tag}_{q}_directions"] = host(r.directions)
+            put_output(out, f"{tag}_{q}", r, FIELDS[q])
+        for q, plan in plans.items():
+            out[f"{tag}_{q}_retries"] = np.asarray(plan.stats["retries"])
     return out
 
+
+def query_arg(query):
+    """A features-mode query's argument (`torch_parity_ref.py`'s
+    query_arg over BATCH; None: none)."""
+    import numpy as np
+    roots = np.asarray(BATCH, np.int32)
+    return {"bfs1": int(roots[0]), "bfs": roots[:2], "cc": None,
+            "sssp": roots[:2], "mbfs": roots}[query]
+
+
+def run_query(sess, query, **kw):
+    arg = query_arg(query)
+    return getattr(sess, METHODS[query])(*(() if arg is None else (arg,)),
+                                         **kw)
+
+
+def corrupt(kind, level, pred, root, edges):
+    """A BFS output (numpy level, pred) broken so that Graph500 rule
+    `kind` (a CORRUPTIONS entry) is the first to fail.  Deterministic, so
+    every rank and the JAX check break it alike."""
+    import numpy as np
+    level, pred = level.copy(), pred.copy()
+    vis = np.flatnonzero(level >= 0)
+    vis = vis[vis != root]
+    children = np.bincount(pred[pred >= 0], minlength=level.shape[0])
+    leaves = [v for v in vis if children[v] == 0]
+    u, v = edges
+    if kind == "root":
+        pred[root] = (root + 1) % level.shape[0]
+    elif kind == "visited":
+        pred[vis[0]] = -1
+    elif kind == "level+1":
+        w = vis[-1]
+        pred[w] = next(x for x in vis if level[x] == level[w] and x != w)
+    elif kind == "tree edge":
+        w = vis[-1]
+        nbrs = set(u[v == w].tolist())
+        pred[w] = next(x for x in np.flatnonzero(level == level[w] - 1)
+                       if x not in nbrs)
+    elif kind == "span":
+        # a leaf re-hung two levels deeper below a neighbour one level
+        # under it: its tree edge holds, its old parent's edge spans 3
+        for w in leaves:
+            nbrs = u[v == w]
+            deeper = [x for x in nbrs if level[x] == level[w] + 1]
+            if deeper:
+                pred[w] = deeper[0]
+                level[w] += 2
+                break
+        else:
+            raise AssertionError("no leaf with a deeper neighbour")
+    elif kind == "incomplete":
+        w = leaves[0]
+        level[w] = pred[w] = -1
+    else:
+        raise ValueError(kind)
+    return level, pred
 
 # ----------------------------------------------------------------------------
 # rank roles
@@ -175,7 +314,8 @@ def worker_queries(a):
     graph = DistGraph.from_edges(edges, BFSConfig(grid=a.grid), weights=w,
                                  mesh=mesh, n=n)
     assert graph.csc.col_off.shape[:2] == (mesh.Rl, mesh.Cl)
-    out = run_queries(graph, CONFIGS[a.configs], a.grid, a.exchange)
+    out = run_queries(graph, CONFIGS[a.configs], a.grid, a.exchange,
+                      a.telemetry, a.ft)
     np.savez(os.path.join(a.out, f"rank{rank}.npz"), **out)
     multihost.shutdown()
     print(f"RANK {rank} DONE")
@@ -278,7 +418,6 @@ def worker_surface(a):
     from repro_torch.api import BFSConfig, DistGraph
     from repro_torch.core import partition as P
     from repro_torch.dist import multihost
-    from repro_torch.runtime import RecoveryPlan
     from repro_torch.serve import GraphServer
 
     rank, _, mesh = join(a)
@@ -305,28 +444,197 @@ def worker_surface(a):
             f = "level" if q == "bfs" else "dist"
             assert torch.equal(getattr(x, f), getattr(y, f)), (q, direction)
             assert x.edges_scanned == y.edges_scanned, (q, direction)
-    cases = {
-        "telemetry": lambda: graph.session(BFSConfig(
-            grid=a.grid, telemetry=True)),
-        "fault_tolerance": lambda: graph.session(BFSConfig(
-            grid=a.grid, fault_tolerance=True, ckpt_every=2)),
-        "recovery=": lambda: s.bfs(ROOT, recovery=RecoveryPlan()),
-        "validate=True": lambda: s.bfs(ROOT, validate=True),
-        "validate=edges": lambda: s.bfs(ROOT, validate=edges),
-        "GraphServer": lambda: GraphServer({"g": graph}),
-    }
-    for what, fn in cases.items():
-        try:
-            fn()
-        except NotImplementedError as e:
-            if A13_2 not in str(e):
-                raise AssertionError(f"{what}: the error does not name "
-                                     f"{A13_2}: {e}")
-            continue
-        raise AssertionError(f"{what} did not raise in a process group")
+    try:
+        GraphServer({"g": graph})
+    except NotImplementedError as e:
+        if A13_3 not in str(e):
+            raise AssertionError(f"GraphServer: the error does not name "
+                                 f"{A13_3}: {e}")
+    else:
+        raise AssertionError("GraphServer did not refuse a process group")
     # the group still answers after the refusals
     out = s.bfs(ROOT)
     assert int(out.n_levels) > 1 and out.level.shape == (graph.grid.n,)
+    multihost.shutdown()
+    print(f"RANK {rank} DONE")
+
+
+def flat_tree(out, prefix, tree):
+    """A nested dict of arrays into `out` under "{prefix}/{path}"."""
+    import numpy as np
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat_tree(out, f"{prefix}/{k}", v)
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+
+
+def ft_config(grid, direction=False, codec="list", **kw):
+    from repro_torch.api import BFSConfig
+    return BFSConfig(grid=grid, edge_chunk=FT_CHUNK, direction=direction,
+                     fold_codec=codec, **kw)
+
+
+def worker_features(a):
+    """--mode features (see the module docstring)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import DistGraph
+    from repro_torch.dist import multihost
+    from repro_torch.runtime import (DeviceLossInjector, ElasticCoordinator,
+                                     RecoveryPlan, RetryPolicy,
+                                     TraversalCheckpointer,
+                                     UnrecoverableLoss)
+
+    rank, dev, mesh = join(a)
+    n, edges, w = make_inputs(a.scale)
+    R, C = a.grid
+    gtag = f"{R}x{C}"
+    sections = a.sections.split(",")
+    graph = DistGraph.from_edges(edges, ft_config(a.grid), weights=w,
+                                 mesh=mesh, n=n)
+    out, msgs = {}, {}
+
+    def same(x, y, what):
+        for f in dataclasses.fields(x):
+            if f.name == "trace":
+                continue
+            gx, gy = getattr(x, f.name), getattr(y, f.name)
+            ok = torch.equal(gx, gy) if isinstance(gx, torch.Tensor) \
+                else gx == gy
+            if not ok:
+                raise AssertionError(f"rank {rank}: {what}: {f.name} differs")
+
+    if "validate" in sections:
+        s = graph.session(ft_config(a.grid))
+        roots = np.asarray(BATCH, np.int32)
+        s.bfs(roots, validate=True)
+        s.bfs(ROOT, validate=edges)
+        base = s.bfs(roots)
+        lv, pr = host(base.level[0])[:n], host(base.pred[0])[:n]
+        out["validate_level"], out["validate_pred"] = lv, pr
+        for kind in CORRUPTIONS:
+            bl, bp = corrupt(kind, lv, pr, int(roots[0]), edges)
+            bad = dataclasses.replace(
+                base, level=torch.from_numpy(bl)[None].to(dev),
+                pred=torch.from_numpy(bp)[None].to(dev))
+            for share, v in (("blocks", True), ("slice", edges)):
+                try:
+                    s._validate(bad, roots[:1], v)
+                    msgs[f"corrupt:{kind}:{share}"] = None
+                except AssertionError as e:
+                    msgs[f"corrupt:{kind}:{share}"] = str(e)
+        g2 = DistGraph.from_edges(edges, ft_config(a.grid), mesh=mesh, n=n)
+        g2.release_edges()
+        try:
+            g2.session().bfs(ROOT, validate=True)
+            msgs["released"] = None
+        except ValueError as e:
+            msgs["released"] = str(e)
+
+    if "segmented" in sections:
+        for direction, codec in FT_CONFIGS:
+            ctag = f"{dtag(direction)}_{codec}"
+            plain = graph.session(ft_config(a.grid, direction, codec))
+            for q in FIELDS:
+                base = run_query(plain, q)
+                put_output(out, f"ft_{ctag}_{q}", base, FIELDS[q])
+                for K in (1, 2):
+                    s = graph.session(ft_config(
+                        a.grid, direction, codec, fault_tolerance=True,
+                        ckpt_every=K))
+                    got = run_query(s, q, recovery=RecoveryPlan())
+                    same(got, base, f"K={K} {ctag} {q}")
+                    put_output(out, f"seg{K}_{ctag}_{q}", got, FIELDS[q])
+        plan = RecoveryPlan(injector=DeviceLossInjector(3, transient=True))
+        s = graph.session(ft_config(a.grid, fault_tolerance=True,
+                                    ckpt_every=1))
+        got = run_query(s, "bfs", recovery=plan)
+        put_output(out, "transient_bfs", got, FIELDS["bfs"])
+        msgs["transient"] = {k: plan.stats[k] for k in
+                             ("retries", "segments", "delays")}
+
+    if "snapshots" in sections:
+        for case in SNAP_CASES:
+            tag = case["tag"]
+            s = graph.session(ft_config(
+                a.grid, case["direction"], case["codec"],
+                fault_tolerance=True, ckpt_every=1,
+                telemetry=case["telemetry"]))
+            ck = TraversalCheckpointer(
+                os.path.join(a.ftdir, f"torch_{gtag}_{tag}"), tag)
+            plan = RecoveryPlan(checkpointer=ck,
+                                injector=DeviceLossInjector(case["at"],
+                                                            fires=1),
+                                policy=RetryPolicy(max_retries=0))
+            try:
+                run_query(s, case["query"], recovery=plan)
+                raise AssertionError(f"{tag}: the loss did not fire")
+            except UnrecoverableLoss as e:
+                flat_tree(out, f"snap_{tag}", e.snapshot["arrays"])
+                msgs[f"snap_meta:{tag}"] = e.snapshot["meta"]
+            loaded = ck.load()          # every rank reads rank 0's write
+            msgs[f"snap_loaded:{tag}"] = loaded["meta"]
+
+    if "elastic" in sections or "refusal" in sections:
+        policy = RetryPolicy(max_retries=2, backoff_s=1e-4, jitter_s=1e-4,
+                             seed=1)
+        cfg = ft_config(a.grid, fault_tolerance=True, ckpt_every=1)
+        cases = ELASTIC_CASES if "elastic" in sections else ELASTIC_CASES[:1]
+        for case in cases:
+            tag = case["tag"]
+            plan = RecoveryPlan(injector=DeviceLossInjector(
+                2, fires=policy.max_retries + 1), policy=policy)
+            coord = ElasticCoordinator(edges, cfg, weights=w, n=n,
+                                       max_shrinks=2)
+            try:
+                got = coord.run(METHODS[case["query"]],
+                                query_arg(case["query"]), plan=plan)
+            except ValueError as e:
+                msgs[f"elastic_error:{tag}"] = str(e)
+                continue
+            put_output(out, f"el_{tag}", got, FIELDS[case["query"]])
+            msgs[f"elastic:{tag}"] = {
+                "grids": coord.grids, "stats": [
+                    plan.stats[k] for k in ("resumes", "segments",
+                                            "retries",
+                                            "resumed_from_level")]}
+    np.savez(os.path.join(a.out, f"rank{rank}.npz"), **out)
+    with open(os.path.join(a.out, f"rank{rank}.json"), "w") as f:
+        json.dump(msgs, f)
+    multihost.shutdown()
+    print(f"RANK {rank} DONE")
+
+
+def worker_resume(a):
+    """--mode resume (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.api import DistGraph
+    from repro_torch.dist import multihost
+    from repro_torch.runtime import RecoveryPlan, TraversalCheckpointer
+
+    rank, _, mesh = join(a)
+    n, edges, w = make_inputs(a.scale)
+    R, C = a.grid
+    graph = DistGraph.from_edges(edges, ft_config(a.grid), weights=w,
+                                 mesh=mesh, n=n)
+    out = {}
+    for case in SNAP_CASES:
+        tag = case["tag"]
+        snap = TraversalCheckpointer(
+            os.path.join(a.ftdir, f"jax_{R}x{C}_{tag}"), tag).load()
+        flat_tree(out, f"jaxsnap_{tag}", snap["arrays"])
+        s = graph.session(ft_config(
+            a.grid, case["direction"], case["codec"], fault_tolerance=True,
+            ckpt_every=1, telemetry=case["telemetry"]))
+        got = run_query(s, case["query"], recovery=RecoveryPlan(
+            resume=snap))
+        put_output(out, f"ftx_{tag}", got, FIELDS[case["query"]])
+    np.savez(os.path.join(a.out, f"rank{rank}.npz"), **out)
     multihost.shutdown()
     print(f"RANK {rank} DONE")
 
@@ -377,7 +685,9 @@ def jax_reference(a, td):
     r = subprocess.run([sys.executable, os.path.join(HERE,
                                                      "torch_parity_ref.py"),
                         src, ref, f"{R}x{C}", "--multihost", "--exchange",
-                        ex] + (["--cover"] if a.configs == "cover" else []),
+                        ex] + (["--telemetry"] if a.telemetry else [])
+                       + ([f"--{a.configs}"] if a.configs in
+                          ("cover", "traced") else []),
                        env=env, capture_output=True, text=True,
                        timeout=a.timeout)
     if r.returncode != 0:
@@ -395,7 +705,8 @@ def stacked_reference(a, td):
     n, edges, w = make_inputs(a.scale)
     graph = DistGraph.from_edges(edges, BFSConfig(grid=a.grid), weights=w,
                                  n=n, device=a.device)
-    out = run_queries(graph, CONFIGS[a.configs], a.grid, "flat")
+    out = run_queries(graph, CONFIGS[a.configs], a.grid, "flat",
+                      a.telemetry)
     out = {k.split(":", 1)[1]: v for k, v in out.items()}
     del graph
     if a.device == "cuda":
@@ -426,6 +737,14 @@ def compare(a, ref_path, td):
                         f"from the reference (grid {R}x{C}, {a.nproc} "
                         f"ranks)")
                 n_keys += 1
+            if a.ft:
+                for t in tags:
+                    for q in ("bfs1", "bfs"):
+                        k = f"{ex}:{t}{q}_retries"
+                        if int(got[k]) != 1:
+                            raise AssertionError(
+                                f"rank {rank}: {k} = {int(got[k])}, the "
+                                f"transient loss not retried once")
     if not want_keys:
         raise AssertionError("the reference holds none of the configs")
     return n_keys
@@ -454,6 +773,9 @@ def run_group(argv, out_dir):
 
 def main(argv):
     with tempfile.TemporaryDirectory() as td:
+        if "--ftdir" not in argv and ("features" in argv
+                                      or "resume" in argv):
+            argv = list(argv) + ["--ftdir", td]
         a, outs = run_group(argv, td)
         what = f"{a.nproc} ranks x {a.local}, grid {a.grid[0]}x{a.grid[1]}"
         if a.mode == "queries":
@@ -479,4 +801,5 @@ if __name__ == "__main__":
     else:
         args = parse(sys.argv[1:])
         {"queries": worker_queries, "collectives": worker_collectives,
-         "surface": worker_surface}[ROLE](args)
+         "surface": worker_surface, "features": worker_features,
+         "resume": worker_resume}[ROLE](args)

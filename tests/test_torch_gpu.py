@@ -639,3 +639,24 @@ def test_library_builds_and_loads_once_under_two_threads(cuda_device,
     assert errors == [] and len(got) == 2
     assert got[0] is got[1] is build._libs["bits"]
     assert not list((tmp_path / "kernels").glob("*.tmp*"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ft", [False, True], ids=["traced", "traced-ft"])
+def test_group_traced_and_fault_tolerant_on_card(cuda_device, ft):
+    """2 gloo ranks on cuda:0 at SCALE 12 (2x2, two processors a rank):
+    every query top-down under list and adaptive under bitmap with
+    telemetry=True -- and, fault-tolerant (ckpt_every=2), under a
+    transient loss crossing level 3, retried once -- equals the stacked
+    session on the card, every field and every trace channel on every
+    rank (`tests/dist/torch_run_multihost.py`)."""
+    import subprocess
+    import sys
+    script = ROOT / "tests" / "dist" / "torch_run_multihost.py"
+    r = subprocess.run(
+        [sys.executable, str(script), "2", "2", "flat", "--grid", "2x2",
+         "--device", "cuda", "--scale", "12", "--configs", "traced",
+         "--telemetry", "--timeout", "600"] + (["--ft"] if ft else []),
+        capture_output=True, text=True, timeout=660)
+    assert r.returncode == 0 and r.stdout.rstrip().endswith("OK"), \
+        f"exit {r.returncode}\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}"

@@ -13,8 +13,7 @@ spawns the ranks, each launch under its own deadline):
     at 1x4 over 4 ranks, one of two over 2 ranks of (1, 2));
   * `DistGraph.from_partition(..., mesh=)` of a whole-grid partition
     keeps a rank's blocks and answers as `from_edges(..., mesh=)` does;
-    telemetry, fault tolerance, recovery=, bfs(validate=...) and
-    GraphServer raise NotImplementedError naming ROADMAP A13 part 2 in a
+    GraphServer raises NotImplementedError naming ROADMAP A13 part 3 in a
     group, and the group answers afterwards;
   * marked `gpu`: 2 ranks on cuda:0 (gloo, staged through the host) at
     SCALE 10 equal the stacked session on the card, every field.
@@ -58,9 +57,8 @@ def test_collectives_equal_stacked(layout):
 def test_from_partition_and_unported_features_in_a_group():
     """`from_partition(..., mesh=)` keeps a rank's blocks and answers as
     the `from_edges` graph does (top-down and direction-optimised BFS and
-    SSSP); module 13's features refuse a process group with ROADMAP A13
-    part 2 in the message; then the group still answers (each rank
-    checks)."""
+    SSSP); GraphServer refuses a process group with ROADMAP A13 part 3 in
+    the message; then the group still answers (each rank checks)."""
     out = run("2", "2", "--grid", "2x2", "--mode", "surface")
     assert out.count("DONE") == 2
 
