@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's two session paths, its kernel-stage surface,
-its fault-tolerant level loop, its serving layer and its process-group
-topology once on one NVIDIA GPU and check them.
+its fault-tolerant level loop, its serving layer, its process-group
+topology, its launcher and its graph build and single-device BFS once on
+one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--scale 26] [--roots 64] [--td-roots 16]
+    python3 chip_smoke.py [--scale 26] [--roots 32] [--td-roots 16]
                           [--batch 8] [--dir-batch 4] [--sssp-roots 4]
                           [--delta-scale 22] [--seed 1]
 
@@ -210,7 +211,7 @@ Phases, one line or more each on stdout:
                the butterfly (3 stages); BFS both ways, CC and multi-BFS
                under list and delta equal flat, their traces reading 3
                messages a processor a level (multi-BFS 0, as in JAX);
-  17. group    last, the SCALE 26 graph, its edge list and index and the
+  17. group    after 14b, the SCALE 26 graph, its edge list and index and the
                card's cache dropped (the edge list, weights and the stacked
                outputs below written under build/phase17 after phase 16,
                removed at the end): the port across a real process group
@@ -257,6 +258,23 @@ Phases, one line or more each on stdout:
                snapshot export ms, the checkpoint seconds, the re-plan
                seconds and time_to_first_resumed_level_s.  A rank that fails,
                differs or outlives the leg's deadline fails the phase;
+  18. launch   after 17, the card's memory free again: (a) the launcher,
+               `python3 -m repro_torch.launch.bfs_run --grid 2x2 --scale
+               26 --ef 16 --roots 2 --validate 2` (--grid, --scale, --ef
+               and --edge-chunk follow this script's) and the same with
+               `--direction --fold bitmap`, each a child process (the
+               launcher's `main`, then its launch counts and peak): exit
+               0, the JAX driver's summary line with "(2 validated)" and
+               TEPS > 0, B1 and B2 (and B3, B4 and B7) launched; its line,
+               seconds and peak printed; (b) the four Table 3 analogs
+               (`graphgen.realworld_analog`) at the paper's scales
+               (scale_reduction=0; com-Friendster: SCALE 25, edgefactor
+               27, 1,811,939,328 edges), each planned 2x2 and searched
+               from 2 roots, validated on the card, B1 and B2 launched;
+               (c) on the com-Friendster analog, `graphgen.build_csc` on
+               the card, then `core.bfs_single` from the same 2 roots:
+               levels equal to the session's, preds validated, seconds a
+               root against the session's, and the peak memory;
   6. report    every phase's peak memory, the {"kernels": [...]} line,
                the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
@@ -2970,12 +2988,190 @@ def group_rank_main(args) -> int:
     return 0
 
 
+LAUNCH_TIMEOUT_S = 300           # phase 18: a launcher run's deadline
+LAUNCH_RUNS = (                  # phase 18 (a): (tag, extra flags, kernels)
+    ("top-down", (), ("expand_chunk", "compact_rows")),
+    ("direction", ("--direction", "--fold", "bitmap"),
+     ("expand_chunk", "compact_rows", "pack_bits", "unpack_bits",
+      "bottomup_chunk")))
+# the launcher's main, as `python3 -m repro_torch.launch.bfs_run` runs it,
+# then the child's kernel launch counts and peak memory as one JSON line
+LAUNCH_BOOT = """
+import json, sys
+import torch
+from repro_torch.launch import bfs_run
+bfs_run.main(sys.argv[1:])
+import chip_smoke
+print(json.dumps({"launches": chip_smoke.read_counts(),
+                  "peak_bytes": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def run_launcher(args, flags):
+    """One launcher run in a child process: (its summary line, its launch
+    counts and peak, seconds); raises unless it exits 0 in time."""
+    cmd = [sys.executable, "-c", LAUNCH_BOOT, "--grid", args.grid,
+           "--scale", str(args.scale), "--ef", str(args.edge_factor),
+           "--roots", "2", "--validate", "2", "--edge-chunk",
+           str(args.edge_chunk), *flags]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src"), HERE]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=LAUNCH_TIMEOUT_S, cwd=HERE)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"bfs_run {' '.join(cmd[3:])} exited "
+                             f"{res.returncode} after {wall:.1f} s:\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    return lines[-2], json.loads(lines[-1]), wall
+
+
+def check_summary(line: str, direction: bool) -> float:
+    """The JAX driver's summary line, two roots validated; returns its
+    harmonic TEPS (> 0)."""
+    import re
+    m = re.fullmatch(
+        r"grid=\d+x\d+ scale=\d+ ef=\d+ fold=(\w+) dir=(True|False): "
+        r"harmonic TEPS (\S+) \(2 validated\) \| 2-root sweep \S+s, "
+        r"amortised (\S+) TEPS, harmonic (\S+) TEPS", line)
+    if m is None or m.group(2) != str(direction):
+        raise AssertionError(f"unexpected launcher summary: {line!r}")
+    teps = [float(m.group(k)) for k in (3, 4, 5)]
+    if min(teps) <= 0:
+        raise AssertionError(f"launcher TEPS not positive: {line!r}")
+    return teps[0]
+
+
+def cuda_tensors_alive(torch, top: int = 5) -> list:
+    """(shape, dtype, MiB) of the largest CUDA tensors the garbage
+    collector sees alive: what pins this process's cached segments."""
+    found = []
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                found.append((tuple(obj.shape), str(obj.dtype).split(".")[-1],
+                              round(obj.untyped_storage().nbytes() / 2**20,
+                                    1)))
+        except Exception:   # objects that refuse inspection
+            continue
+    return sorted(found, key=lambda t: -t[2])[:top]
+
+
+def run_launch(torch, args, report, phases):
+    """Phase 18: the launcher and the graph-build / single-device path at
+    full size (see the module docstring)."""
+    from repro_torch.api import BFSConfig, DistGraph
+    from repro_torch.core import bfs_single
+    from repro_torch.core.validate import EdgeIndex, validate_bfs
+    from repro_torch.graphgen import REALWORLD_SPECS, build_csc, degrees, \
+        realworld_analog
+
+    rep = {"launcher": []}
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = cuda_tensors_alive(torch)
+    log(f"[18 launch] this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; its "
+        f"largest live CUDA tensors {held}")
+    # (a) the launcher, top-down and direction-optimised
+    for tag, flags, need in LAUNCH_RUNS:
+        line, child, wall = run_launcher(args, flags)
+        teps = check_summary(line, bool(flags))
+        require_launched(child["launches"], need, f"the {tag} launcher")
+        log(f"[18 launch] (a) bfs_run {tag}: {line}")
+        log(f"[18 launch] (a) bfs_run {tag}: exit 0 in {wall:.1f} s, peak "
+            f"memory {child['peak_bytes'] / 2**30:.2f} GiB, launches "
+            f"{child['launches']}")
+        rep["launcher"].append({"run": tag, "line": line, "s": wall,
+                                "harmonic_teps": teps, **child})
+
+    # (b) the Table 3 analogs at the paper's scales, 2x2, two roots each
+    dev = torch.device("cuda")
+    R, C = (int(x) for x in args.grid.lower().split("x"))
+    rep["analogs"] = []
+    for k, name in enumerate(REALWORLD_SPECS):
+        t0 = time.perf_counter()
+        edges, n, meta = realworld_analog(
+            name, torch.Generator(device=dev).manual_seed(args.seed + k),
+            scale_reduction=0, device=dev)
+        graph = DistGraph.from_edges(
+            edges, BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk), n=n)
+        index = EdgeIndex(edges, n)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        cand = torch.nonzero(degrees(edges[0], n) > 0).flatten()
+        pick = torch.randperm(cand.numel(), device=dev, generator=torch
+                              .Generator(device=dev).manual_seed(args.seed))
+        roots = cand[pick[:2]].tolist()
+        del cand, pick
+        sess = graph.session()
+        zero_counts()
+        searches = []
+        for r in roots:
+            out, dt = timed(torch, lambda: sess.bfs(r))
+            validate_bfs(edges, out.level[:n], out.pred[:n], r, index=index)
+            searches.append((r, out.level[:n].clone(), dt,
+                             int(out.n_levels)))
+        counts = read_counts()
+        require_launched(counts, ("expand_chunk", "compact_rows"),
+                         f"the {name} analog")
+        log(f"[18 launch] (b) {name} analog: SCALE {meta['scale']} "
+            f"edgefactor {meta['edge_factor']}, {edges.shape[1]} directed "
+            f"edges, generated, planned {R}x{C} and indexed in "
+            f"{plan_s:.1f} s; roots "
+            + ", ".join(f"{r}: {lv} levels {dt:.3f} s" for r, _, dt, lv
+                        in searches)
+            + f", validated; launches B1 {counts['expand_chunk']}, B2 "
+            f"{counts['compact_rows']}")
+        rep["analogs"].append({**meta, "edges": int(edges.shape[1]),
+                               "plan_s": plan_s, "roots": roots,
+                               "search_s": [s[2] for s in searches],
+                               "launches": counts})
+        del graph, sess, out
+        if name != "com-Friendster":
+            del edges, index, searches
+            torch.cuda.empty_cache()
+
+    # (c) the Friendster analog's CSC on the card and the single-device BFS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (co, ri), csc_s = timed(torch, lambda: build_csc(edges, n))
+    single = []
+    for r, level, sess_s, _ in searches:
+        (lv, pr), dt = timed(torch, lambda: bfs_single(co, ri, r))
+        if not torch.equal(lv, level):
+            raise AssertionError(f"bfs_single levels from root {r} differ "
+                                 f"from the 2x2 session's")
+        validate_bfs(edges, lv, pr, r, index=index)
+        single.append(dt)
+        log(f"[18 launch] (c) bfs_single root {r}: levels equal to the "
+            f"session's (deepest {int(lv.max())}), preds validated; "
+            f"{dt:.3f} s against the session's {sess_s:.3f} s")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[18 launch] (c) build_csc of the com-Friendster analog "
+        f"({edges.shape[1]} edges) on the card in {csc_s:.2f} s; peak "
+        f"memory {peak / 2**30:.2f} GiB (edge list, EdgeIndex, CSC and the "
+        f"search's temporaries)")
+    rep["single"] = {"csc_s": csc_s, "search_s": single,
+                     "session_s": [s[2] for s in searches],
+                     "peak_bytes": peak}
+    del co, ri, edges, index, searches, lv, pr
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launch"] = rep
+    phases.end("18 launch")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=26)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--roots", type=int, default=64,
+    ap.add_argument("--roots", type=int, default=32,
                     help="timed roots of the direction-optimised path")
     ap.add_argument("--td-roots", type=int, default=16,
                     help="timed roots of the top-down path")
@@ -3090,6 +3286,7 @@ def main() -> int:
         log(f"[3 parity] compact_rows random N={N} S={S}: form "
             f"{KF.compact_rows.last_form}, max_abs_err {err}")
     del rnd, deg, col_off, row_idx, front, visited, cumul, words
+    del kout, kcnt, pout, pcnt, total
     parity_compact_cases(torch, dev, KF)
     parity_stage_cases(torch, dev, K, KB)
     parity_random_dir(torch, dev, gen, KF, KB)
@@ -3275,7 +3472,8 @@ def main() -> int:
         "src/repro/kernels/fold.py:112", launches["compact_rows"],
         b2["err"], b2["ms"], b2["plain_ms"], b2["bytes"]))
     report["compact_rows"] = [b2]
-    del expand_tap, compact_tap, v, mask, arrays
+    # TappedFold holds the tap as a class attribute: drop both
+    del expand_tap, compact_tap, TappedFold, v, mask, arrays, fills, ekw
     phases.end("3b parity")
 
     # -- 12. the kernel-stage surface on the real chunk and graph ------------
@@ -3525,8 +3723,9 @@ def main() -> int:
         raise AssertionError("phase 7 kept no bitmap decode's compaction")
     report["compact_rows"].append(time_compact(
         torch, "real bitmap decode (7b)", dmask, darrays, dfills))
-    del pack_tap, unpack_tap, bu_tap, decode_tap, mask, uwords, bargs, \
-        kern, r_out, c_out, bcumul, btotal, bwords, dmask
+    del pack_tap, unpack_tap, bu_tap, decode_tap, TappedBits, mask, \
+        uwords, bargs, kern, r_out, c_out, bcumul, btotal, bwords, dmask, \
+        darrays, dfills, bkw, live_mask, c_live, wid
     phases.end("7b parity")
 
     # -- 8. direction-path parity: reference path, bottom-up pinned ----------
@@ -3551,7 +3750,7 @@ def main() -> int:
     if not same:
         raise AssertionError("the direction path's plain version differs "
                              "from its kernel path")
-    del ref, ref_sess
+    del ref, ref_sess, reng
     bu_sess = graph.session(BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
                                       direction="bottomup",
                                       fold_codec="bitmap"))
@@ -3588,6 +3787,7 @@ def main() -> int:
            phases)
     run_serve(torch, args, graph, td_roots, roots, scalar, dscalar, times,
               dtimes, dir_config, vals, report, phases)
+    del expand_hook, bu_hook
     # phase 17's inputs to disk while the edge list and weights are here
     gdir = os.path.join(HERE, "build", "phase17")
     (td0, td1), dref = scalar[:2], dscalar[0]
@@ -3642,6 +3842,7 @@ def main() -> int:
         run_group(torch, gdir, group_meta, report, phases)
     finally:
         shutil.rmtree(gdir, ignore_errors=True)
+    run_launch(torch, args, report, phases)
     report["kernels"] = kernels
     report["phase_s"] = phases.seconds
     report["script_s"] = time.perf_counter() - t_script

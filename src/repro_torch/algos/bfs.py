@@ -51,6 +51,11 @@ def init_state(root: int, *, grid: Grid2D, device, local=None) -> BFSState:
                     front_cnt=cnt, lvl=1)
 
 
+def owned_level(level, *, grid: Grid2D, j):
+    """The owned block of a processor in grid column j's level row."""
+    return level[..., j * grid.S:(j + 1) * grid.S]
+
+
 def canonical_front(front, cnt):
     """Sort the padded frontier ascending (pad -1 stays at the back).
 
@@ -152,9 +157,40 @@ def topdown_step(engine, graph, st: BFSState, plan: LevelPlan,
 
 
 class BFSLevelsProgram(FrontierProgram):
-    """The paper's BFS (levels + deferred predecessors) on the engine."""
+    """The paper's BFS (levels + deferred predecessors) on the engine.
+
+    step_factory: optional `(engine, graph, extra, topdown) -> step` hook
+                  replacing the default top-down per-level step.  The
+                  step runs over the topology's block (the whole grid on
+                  one device, a rank's blocks in a process group):
+
+                      step(st, prev_total) -> (st', total, scanned[, aux])
+
+                  `prev_total` is the global frontier size entering the
+                  level (an int); `total` the global size of the frontier
+                  it leaves, which the engine reads from its next plan
+                  instead; `scanned` the level's edges per processor of
+                  the block, row-major (a sequence or a tensor; the
+                  engine sums it, a host read for a tensor); `aux` the
+                  optional telemetry dict (`obs.trace.normalize_aux`).
+                  `topdown(st)` is the engine's own top-down level for the
+                  state the engine planned, returning (st', total,
+                  scanned, aux).  The JAX hook also takes the device
+                  coordinates (i, j), which a block-wide step has no use
+                  for.
+    n_extra:      extra per-processor graph arrays the step consumes (the
+                  CSR twin for bottom-up).
+    """
     name = "bfs"
     codec_hint = "list"
+
+    def __init__(self, step_factory=None, n_extra: int = 0):
+        self.step_factory = step_factory
+        self.n_extra = n_extra
+
+    @property
+    def key(self) -> tuple:
+        return (self.name, self.step_factory, self.n_extra)
 
     def init(self, engine, graph, root):
         return init_state(root, grid=engine.grid, device=engine.device,
@@ -164,9 +200,31 @@ class BFSLevelsProgram(FrontierProgram):
         return plan_level(engine, graph, st)
 
     def make_step(self, engine, graph, extra=()):
-        def step(st, plan, counts):
+        if self.step_factory is None:
+            def step(st, plan, counts):
+                st2, aux = topdown_step(engine, graph, st, plan, counts[1:])
+                return st2, sum(counts[1:]), aux
+            return step
+        planned = {}                      # the level the engine planned
+
+        def topdown(st):
+            plan, counts = planned["plan"], planned["counts"]
             st2, aux = topdown_step(engine, graph, st, plan, counts[1:])
-            return st2, sum(counts[1:]), aux
+            return (st2, engine.topo.psum_all(st2.front_cnt), counts[1:],
+                    aux)
+
+        custom = self.step_factory(engine, graph, extra, topdown)
+
+        def step(st, plan, counts):
+            planned.update(plan=plan, counts=counts)
+            res = custom(st, counts[0])
+            scanned = res[2].tolist() if isinstance(res[2], torch.Tensor) \
+                else [int(x) for x in res[2]]
+            aux = dict(res[3] or {}) if len(res) > 3 else {}
+            if engine.telemetry and "scanned" not in aux:
+                aux["scanned"] = torch.tensor(scanned, dtype=torch.int64,
+                                              device=engine.device)
+            return res[0], sum(scanned), aux
         return step
 
     def make_bottomup_step(self, engine, graph, extra):

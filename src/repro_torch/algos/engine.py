@@ -62,11 +62,15 @@ from repro_torch.obs import trace as T
 
 
 def group_not_ported(what: str) -> NotImplementedError:
-    """The error a process-group run raises for a feature still to be
-    ported there (ROADMAP A13 part 3)."""
+    """The error a process-group run raises for a feature the port keeps
+    to one process (ROADMAP A13 part 3: the JAX server defines no batch
+    order across processes, so a group server would be a feature the JAX
+    package lacks)."""
     return NotImplementedError(
-        f"{what} is not ported to a process group yet (ROADMAP A13 part 3); "
-        f"it runs on the stacked grid (DistGraph.from_edges without mesh=)")
+        f"{what} does not run over a process group: the JAX package's "
+        f"server defines no batch order across processes (ROADMAP A13 part "
+        f"3, outside the port); it runs on the stacked grid "
+        f"(DistGraph.from_edges without mesh=)")
 
 
 def wide_add(hi, lo, delta):

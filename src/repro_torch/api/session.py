@@ -431,9 +431,13 @@ class DistGraph:
 
 
 class GraphSession:
-    """Query phase: many BFS searches over one resident DistGraph."""
+    """Query phase: many BFS searches over one resident DistGraph.
 
-    def __init__(self, graph: DistGraph, config: BFSConfig = None):
+    engine: the BFS engine to run (None = the graph's engine for the
+    config); the deprecated drivers pass theirs, built once per driver."""
+
+    def __init__(self, graph: DistGraph, config: BFSConfig = None, *,
+                 engine: FrontierEngine = None):
         self.graph = graph
         self.config = config if config is not None else graph.config
         # exchange="auto" resolves against the PLANNED grid and an explicit
@@ -451,7 +455,8 @@ class GraphSession:
         if self.config.direction_mode is not None:
             csr = graph.ensure_csr()
             self.extra = (csr["row_off"], csr["col_idx"])
-        self.engine = graph.engine_for(self.config)
+        self.engine = engine if engine is not None \
+            else graph.engine_for(self.config)
         # the last LevelTrace (scalar) / tuple of traces (batch) of THIS
         # session's queries; None until a telemetry=True query completes
         self._last_trace = None
@@ -502,7 +507,7 @@ class GraphSession:
             entry = Runnable(self.engine, g, self.extra, B)
             self.engine.trace_count += 1
             self.graph._compiled[key] = entry
-        return entry
+        return _bound(entry, g, self.extra)
 
     def _algo_compiled(self, eng, key, arg_shape: tuple, extra, *,
                        batched: bool = False) -> Runnable:
@@ -517,7 +522,7 @@ class GraphSession:
             entry = Runnable(eng, g, extra, arg_shape[0] if batched else None)
             eng.trace_count += 1
             self.graph._compiled[ckey] = entry
-        return entry
+        return _bound(entry, g, extra)
 
     def _run_roots(self, eng, roots_np, extra, recovery, entry_for):
         """A scalar-or-batch rooted query (BFS, SSSP) through the cache
@@ -712,6 +717,17 @@ class GraphSession:
                 eng, sources_np, *extra, recovery=recovery))
         return self._traced(self._algo_compiled(
             eng, key, sources_np.shape, extra)(sources_np))
+
+
+def _bound(entry: Runnable, graph: LocalGraph2D, extra) -> Runnable:
+    """A cache entry bound to this graph's arrays.  The entry of another
+    graph of the same shapes (the deprecated drivers share one cache over
+    every graph they run, as JAX's share data-independent executables) is
+    its engine rebound, still a hit."""
+    if entry.graph is graph and len(entry.extra) == len(extra) and all(
+            a is b for a, b in zip(entry.extra, extra)):
+        return entry
+    return dataclasses.replace(entry, graph=graph, extra=extra)
 
 
 def _slice_pieces(edges, mesh):

@@ -281,3 +281,44 @@ def partition_edge_vals_csr(edges, vals, grid: Grid2D,
     direction-optimised SSSP pulls over this copy)."""
     return _partition(edges, grid, pad_to, by_row=True, vals=vals,
                       ids=False, local=local, device=device)[3]
+
+
+# ----------------------------------------------------------------------------
+# 1D baseline partition (the paper's ORIGINAL code [1]: modulo rule)
+# ----------------------------------------------------------------------------
+
+def partition_1d(edges, n: int, P: int, pad_to: int | None = None):
+    """Vertices assigned by modulo rule; each processor stores the full
+    adjacency lists (CSC columns) of its own vertices.
+
+    edges: (2, E) integer tensor.  Returns the JAX package's dict, on the
+    edges' device: per-processor CSC over local columns (n/P columns,
+    column k on processor p is vertex k*P + p) -- col_off (P, n/P + 1)
+    int32, row_idx (P, e_max) int32 GLOBAL dst ids padded -1, nnz (P,)
+    int32 -- and the ints n and P.  Within a column the rows keep the
+    input order (JAX's `np.lexsort((lc, dev))`): one counting sort of the
+    edges by (processor, local column)."""
+    from repro_torch.graphgen.build import group_by_key
+
+    if n % P:
+        raise ValueError("n must be divisible by P (pad first)")
+    u = edges[0].long()
+    ncl = n // P
+    off, rows = group_by_key((u % P) * ncl + u // P, edges[1], n)
+    bounds = off[::ncl]                     # (P + 1,) each processor's span
+    nnz = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    counts = nnz.tolist()
+    e_max = pad_to if pad_to is not None else max(counts)
+    for p, cnt in enumerate(counts):
+        if cnt > e_max:
+            raise ValueError(f"pad_to={e_max} < local nnz {cnt} at P({p})")
+    col_off = off[:-1].view(P, ncl)
+    col_off = torch.cat([col_off, bounds[1:, None]], dim=1) \
+        - bounds[:-1, None]
+    row_idx = torch.full((P, e_max), -1, dtype=torch.int32,
+                         device=rows.device)
+    for p, cnt in enumerate(counts):
+        a = int(bounds[p])
+        row_idx[p, :cnt] = rows[a:a + cnt]
+    return dict(col_off=col_off.to(torch.int32), row_idx=row_idx, nnz=nnz,
+                n=n, P=P)

@@ -23,10 +23,16 @@ grid) and the collectives are tensor operations.  `GroupTopology` holds one
 rank's block of a `torch.distributed` group (`dist.multihost`) and the
 collectives are real transfers within the row and column groups of its mesh;
 `fetch` gathers the grid-wide outputs to every rank.
+
+`Topology(grid, mesh, row_axes, col_axes)` and `Topology.one_d(n, mesh,
+axes)` are the JAX package's constructors over the port's meshes: a
+`dist.compat.StackedMesh` gives the stacked topology, a
+`multihost.ProcessMesh` the group topology.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -240,3 +246,47 @@ class GroupTopology:
         """This rank's (Rl, Cl, ...) blocks -> the whole (R, C, ...) array,
         on every rank."""
         return MH.fetch(x, self.mesh)
+
+
+def _axes(a) -> tuple:
+    if a is None:
+        return ()
+    return tuple(a) if isinstance(a, (tuple, list)) else (a,)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """A mesh's axis name -> size (a `StackedMesh` or a `ProcessMesh`)."""
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+class Topology:
+    """The JAX package's `Topology` constructors on the port: binding a
+    grid to a mesh's axes returns the topology that runs it --
+    `StackedTopology` on a `dist.compat.StackedMesh` (the grid's rows span
+    `row_axes`, its columns `col_axes`, as in JAX, which checks the sizes),
+    `GroupTopology` on a `multihost.ProcessMesh` (the mesh's shape is the
+    grid's)."""
+
+    def __new__(cls, grid: Grid2D, mesh, row_axes=("r",), col_axes=("c",)):
+        if isinstance(mesh, MH.ProcessMesh):
+            return GroupTopology(grid, mesh)
+        row_axes, col_axes = _axes(row_axes), _axes(col_axes)
+        sizes = mesh_axis_sizes(mesh)
+        R = math.prod(sizes[a] for a in row_axes)
+        C = math.prod(sizes[a] for a in col_axes)
+        if (R, C) != (grid.R, grid.C):
+            raise ValueError(
+                f"mesh axes give a {R}x{C} grid but Grid2D is "
+                f"{grid.R}x{grid.C} (row_axes={row_axes}, "
+                f"col_axes={col_axes})")
+        return StackedTopology(grid, mesh.device)
+
+    @classmethod
+    def one_d(cls, n: int, mesh, axes=("p",)):
+        """The 1D baseline as the degenerate 1 x P grid (n padded to P),
+        P the product of the `axes` sizes."""
+        axes = _axes(axes)
+        sizes = mesh_axis_sizes(mesh)
+        P = math.prod(sizes[a] for a in axes)
+        return cls(Grid2D.for_vertices(n, 1, P), mesh, row_axes=(),
+                   col_axes=axes)

@@ -11,7 +11,9 @@ port edges made by the JAX generator.
 
 The JAX version materialises (scale, n_edges) float draws at once -- 112 GB
 at scale 26.  Here the bits are drawn one level at a time for one batch of
-edges at a time, straight into the (2, 2E) int32 output.
+edges at a time, straight into the (2, 2E) int32 output.  The steps are
+also there on their own: `permute_labels` relabels an edge list, a batch
+at a time, and `make_undirected` appends the opposites.
 """
 from __future__ import annotations
 
@@ -59,13 +61,39 @@ def rmat_edges(scale: int, edge_factor: int = 16, generator=None,
         out[0, a:a + m] = src
         out[1, a:a + m] = dst
     if permute:
-        perm = torch.randperm(n, generator=generator, device=device) \
-            .to(torch.int32)
+        perm = _permutation(n, generator, device)
         for a in range(0, n_edges, BATCH):
             b = min(a + BATCH, n_edges)
-            for r in range(2):
-                out[r, a:b] = perm[out[r, a:b].long()]
+            out[:, a:b] = perm[out[:, a:b].long()]
     if undirected:
         out[0, n_edges:] = out[1, :n_edges]
         out[1, n_edges:] = out[0, :n_edges]
     return out
+
+
+def _permutation(n: int, generator, device) -> torch.Tensor:
+    """A random permutation of range(n) as int32 (the Graph500 scramble)."""
+    return torch.randperm(n, generator=generator, device=device) \
+        .to(torch.int32)
+
+
+def permute_labels(edges: torch.Tensor, n: int,
+                   generator=None) -> torch.Tensor:
+    """Apply a random vertex relabeling (Graph500 'scramble'): perm[edges]
+    for a permutation of range(n) drawn from `generator` (None: one on the
+    edges' device seeded with 0), as a new int32 tensor, relabelled a
+    batch of edges at a time."""
+    device = edges.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    perm = _permutation(n, generator, device)
+    out = torch.empty(tuple(edges.shape), dtype=torch.int32, device=device)
+    for a in range(0, edges.shape[1], BATCH):
+        out[:, a:a + BATCH] = perm[edges[:, a:a + BATCH].long()]
+    return out
+
+
+def make_undirected(edges: torch.Tensor) -> torch.Tensor:
+    """Add the opposite of each edge (paper sec. 4): (2, 2E), the
+    opposites after the edges."""
+    return torch.cat([edges, edges.flip(0)], dim=1)

@@ -59,9 +59,18 @@ adaptive under bitmap and delta; with --traced only top-down under list
 and adaptive under bitmap (with --telemetry: the traces a process group
 is held to).
 
+With --shims it runs, per grid, the deprecated drivers and the engine on
+the JAX package's `partition_2d` (edge_chunk 512) from the first root:
+`BFS2D` under each fold codec under "{RxC}_bfs2d_{codec}_*",
+`BFS2DDirection` under "{RxC}_dir_*", for a 1 x P grid `BFS1D` over a
+("p",) mesh of P devices under "{RxC}_bfs1d_*", and `DistBFSEngine` with
+the default step under "{RxC}_engine_*", with an identity `step_factory`
+under "{RxC}_ident_*" and its `run_batch(roots)` under
+"{RxC}_engine_batch_*".
+
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
 [--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills]
-[--multihost [--cover | --traced]] (GRID = RxC).  EDGES.npz holds
+[--multihost [--cover | --traced]] [--shims] (GRID = RxC).  EDGES.npz holds
 `edges` (2, E), `roots` (B,) and `n`.
 """
 import dataclasses
@@ -73,7 +82,9 @@ EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
     else "flat"
 FT_DIR = OPTS[OPTS.index("--ft") + 1] if "--ft" in OPTS else None
 FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE,
-         "--ft", FT_DIR, "--drills", "--multihost", "--cover", "--traced")
+         "--ft", FT_DIR, "--drills", "--multihost", "--cover", "--traced",
+         "--shims")
+SHIMS = "--shims" in OPTS
 MULTIHOST = "--multihost" in OPTS
 MULTIHOST_CONFIGS = [(False, "list"), (True, "bitmap"), (True, "delta")] \
     if "--cover" in OPTS else [(False, "list"), (True, "bitmap")] \
@@ -252,6 +263,54 @@ def put_multihost(out, grid):
             ("level", "src", "n_levels"))
 
 
+def put_shims(out, grid):
+    """The --shims outputs of one grid (see the module docstring)."""
+    import warnings
+
+    import jax.numpy as jnp
+
+    from repro.core import Grid2D, partition_2d
+    from repro.core.bfs1d import BFS1D
+    from repro.core.bfs2d import BFS2D
+    from repro.core.direction import BFS2DDirection
+    from repro.core.partition import partition_2d_csr
+    from repro.core.types import LocalGraph2D
+    from repro.dist import DistBFSEngine, Topology
+
+    def as_graph(lg):
+        return LocalGraph2D(jnp.asarray(lg.col_off), jnp.asarray(lg.row_idx),
+                            jnp.asarray(lg.nnz))
+
+    warnings.simplefilter("ignore", DeprecationWarning)
+    R, C = grid
+    tag, root = f"{R}x{C}", int(roots[0])
+    devices = jax.devices()[:R * C]
+    mesh = make_mesh((R, C), ("r", "c"), devices=devices)
+    g2 = Grid2D.for_vertices(n, R, C)
+    graph = as_graph(partition_2d(edges, g2))
+    for codec in ("list", "bitmap", "delta"):
+        put(out, f"{tag}_bfs2d_{codec}",
+            BFS2D(g2, mesh, edge_chunk=512, fold_codec=codec).run(graph,
+                                                                  root))
+    csr = {k: jnp.asarray(v) for k, v in partition_2d_csr(edges, g2).items()}
+    put(out, f"{tag}_dir",
+        BFS2DDirection(g2, mesh, edge_chunk=512).run(graph, csr, root))
+    if R == 1:
+        bfs1 = BFS1D(n, make_mesh((C,), ("p",), devices=devices),
+                     edge_chunk=512)
+        put(out, f"{tag}_bfs1d",
+            bfs1.run(as_graph(partition_2d(edges, bfs1.grid)), root))
+    topo = Topology(g2, mesh)
+    eng = DistBFSEngine(topo, edge_chunk=512)
+    put(out, f"{tag}_engine", eng.run(graph, root))
+    put(out, f"{tag}_engine_batch", eng.run_batch(graph, jnp.asarray(roots)))
+    ident = DistBFSEngine(
+        topo, edge_chunk=512,
+        step_factory=lambda e, g, x, i, j, topdown: (
+            lambda st, prev_total: topdown(st)))
+    put(out, f"{tag}_ident", ident.run(graph, root))
+
+
 def put_grid(out, grid):
     """The parity outputs of one grid (the modes before --ft)."""
     R, C = grid
@@ -281,6 +340,9 @@ if DRILLS:
 elif MULTIHOST:
     for grid in GRIDS:
         put_multihost(out, grid)
+elif SHIMS:
+    for grid in GRIDS:
+        put_shims(out, grid)
 elif FT_DIR is not None:
     for R, C in GRIDS:
         mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])

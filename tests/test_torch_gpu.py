@@ -660,3 +660,41 @@ def test_group_traced_and_fault_tolerant_on_card(cuda_device, ft):
         capture_output=True, text=True, timeout=660)
     assert r.returncode == 0 and r.stdout.rstrip().endswith("OK"), \
         f"exit {r.returncode}\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}"
+
+
+@pytest.mark.gpu
+def test_graph_build_and_bfs_single_card_equal_cpu(cuda_device, monkeypatch):
+    """`graphgen.build_csc` / `build_csr` and `core.bfs_single` on the card
+    equal the CPU's (which the CPU tests hold to the JAX package) at SCALE
+    12, with edge passes that split columns; the launcher runs on the card
+    by default and prints two validated roots."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.core import bfs_single
+    BS = importlib.import_module("repro_torch.core.bfs_single")
+    from repro_torch.graphgen import build_csc, build_csr, rmat_edges
+
+    n = 1 << 12
+    edges = rmat_edges(12, 16, torch.Generator().manual_seed(3), "cpu")
+    for build in (build_csc, build_csr):
+        cpu = build(edges, n)
+        card = build(edges.to(cuda_device), n)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+    co, ri = build_csc(edges, n)
+    cco, cri = co.to(cuda_device), ri.to(cuda_device)
+    for root in (0, 17, 4000):
+        wl, wp = bfs_single(co, ri, root)
+        for chunk in (1000, 1 << 26):
+            monkeypatch.setattr(BS, "CHUNK", chunk)
+            lv, pr = bfs_single(cco, cri, root)
+            assert torch.equal(lv.cpu(), wl) and torch.equal(pr.cpu(), wp)
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.bfs_run", "--grid", "2x2",
+         "--scale", "12", "--roots", "4", "--validate", "2"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0 and "(2 validated)" in r.stdout, \
+        f"exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}"

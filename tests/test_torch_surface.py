@@ -14,7 +14,8 @@ cache tests):
     one engine), `build_engine`, `resolve_fold_codec`, `wide_add` /
     `wide_total`, `teps`;
   * every name of the JAX packages' `__all__` / import lists resolves on
-    the port, except those a later ROADMAP item brings (listed here).
+    the port, except those a later ROADMAP item brings and those with no
+    counterpart in the port (each listed here with its reason).
 
 Inputs: `repro.graphgen.rmat_edges(jax.random.key(0), 8, 8)` as numpy,
 uint8 weights `(|31 u + v| mod 255) + 1`, roots from
@@ -41,10 +42,15 @@ SCALE, EF = 8, 8
 N = 1 << SCALE
 GRIDS = [(1, 1), (2, 2)]
 # JAX names whose port comes with a later ROADMAP item
-WAITING = {"repro.core": {"partition_1d": "A15", "bfs_single": "A14",
-                          "bfs_reference_py": "A14"}}
+WAITING = {}
+# JAX names with no counterpart in the port, and why
+JAX_ONLY = {"repro.dist": {
+    "shard_map": "the port runs no shard_map program: the stacked grid's "
+                 "collectives are tensor operations, a process group's "
+                 "torch.distributed calls",
+    "axis_types_kwargs": "torch meshes have no axis types"}}
 PACKAGES = ("algos", "api", "core", "ckpt", "serve", "obs", "runtime",
-            "scenarios")
+            "scenarios", "graphgen", "dist")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -340,16 +346,19 @@ def _public_names(mod) -> list:
 def test_every_jax_name_resolves_on_the_port(pkg):
     """Each name in the JAX package's `__all__` (or its import list) is an
     attribute of the port's package, except the names a later ROADMAP item
-    brings; a waiting name must really be missing (so this list shrinks
-    as the port grows)."""
+    brings and the JAX-only names; a waiting or JAX-only name must really
+    be missing (so the lists shrink as the port grows)."""
     jax_mod = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
     waiting = WAITING.get(f"repro.{pkg}", {})
+    jax_only = JAX_ONLY.get(f"repro.{pkg}", {})
     missing = [name for name in _public_names(jax_mod)
-               if name not in waiting and not hasattr(port, name)]
+               if name not in waiting and name not in jax_only
+               and not hasattr(port, name)]
     assert missing == []
-    for name in waiting:
-        assert not hasattr(port, name), f"{name} arrived: drop it from WAITING"
+    for name in list(waiting) + list(jax_only):
+        assert name in _public_names(jax_mod), name
+        assert not hasattr(port, name), f"{name} arrived: drop it from the list"
 
 
 def test_kernel_build_and_load_run_once_under_two_threads(tmp_path,
