@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's two session paths, its kernel-stage surface,
 its fault-tolerant level loop, its serving layer, its process-group
-topology, its launcher and its graph build and single-device BFS once on
-one NVIDIA GPU and check them.
+topology, its launcher, its graph build and single-device BFS, and its
+graph-learning and recsys models once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--scale 26] [--roots 32] [--td-roots 16]
                           [--batch 8] [--dir-batch 4] [--sssp-roots 4]
@@ -275,6 +275,25 @@ Phases, one line or more each on stdout:
                the card, then `core.bfs_single` from the same 2 roots:
                levels equal to the session's, preds validated, seconds a
                root against the session's, and the peak memory;
+  19. models   after 18, last, in a child process on the freed card
+               (`scripts/torch_models_card.py`, its lines printed as they
+               come): (a) GraphSAGE-Reddit on minibatch_lg, 20 sampled
+               steps of batch 1024 (fanout 15-10) on 114,615,892 edges,
+               the first step held to the CPU path; (b) GraphSAGE on
+               ogb_products (2,449,029 vertices, 61,859,140 edges, 2x2),
+               5 full-graph steps on `make_spmm2d`, the SpMM held to an
+               edge-list reference; (c) `make_spmm2d` on phase 4's SCALE
+               26 graph (2x2, d 16, unweighted and with the uint8
+               weights), held to a float64 edge-list reference; (d) NequIP,
+               MACE and EGNN on 128 molecules: energies, forces, rotation
+               invariance and covariance, card = CPU, each held per
+               molecule in float64, then fp32 against float64, a
+               training step;
+               (e) DeepFM at the Criteo vocabularies: FM = pairwise sum,
+               card = CPU, train_batch, serve_p99 (p50 / p99 of 200
+               calls), serve_bulk and retrieval_cand.  Every check fails
+               the phase; no kernel of csrc/ runs in it (JAX computes
+               these models outside Pallas);
   6. report    every phase's peak memory, the {"kernels": [...]} line,
                the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
@@ -3166,6 +3185,32 @@ def run_launch(torch, args, report, phases):
     phases.end("18 launch")
 
 
+MODELS_TIMEOUT_S = 300           # phase 19: the child's deadline
+
+
+def run_models(torch, args, report, phases):
+    """Phase 19: `scripts/torch_models_card.py` in a child process (see the
+    module docstring); its lines print as they come, its report joins this
+    one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(HERE, "build", "phase19.json")
+    if os.path.exists(out):
+        os.remove(out)
+    res = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts",
+                                      "torch_models_card.py"),
+         "--seed", str(args.seed), "--out", out], cwd=HERE,
+        timeout=MODELS_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 19 failed: the child exited "
+                             f"{res.returncode}")
+    with open(out) as f:
+        report["models"] = json.load(f)
+    os.remove(out)
+    phases.end("19 models")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=26)
@@ -3843,6 +3888,7 @@ def main() -> int:
     finally:
         shutil.rmtree(gdir, ignore_errors=True)
     run_launch(torch, args, report, phases)
+    run_models(torch, args, report, phases)
     report["kernels"] = kernels
     report["phase_s"] = phases.seconds
     report["script_s"] = time.perf_counter() - t_script

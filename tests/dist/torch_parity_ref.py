@@ -68,9 +68,17 @@ the default step under "{RxC}_engine_*", with an identity `step_factory`
 under "{RxC}_ident_*" and its `run_batch(roots)` under
 "{RxC}_engine_batch_*".
 
+With --spmm (EDGES.npz also holds `x` and `xi` (n, d) float32 features,
+random and integer-valued, `gy` (n, d) an output gradient and `weights`
+(E,) uint8) it runs, per grid, the 2D SpMM on the JAX package's
+`partition_2d`: `make_spmm2d(grid, mesh)` on x under "{RxC}_spmm_y", on
+xi under "{RxC}_spmm_yi", `spmm2d_device` under `shard_map` with the
+`partition_edge_vals` weights on x under "{RxC}_spmm_yw", and the gradient
+of sum(make_spmm2d(x) * gy) with respect to x under "{RxC}_spmm_gx".
+
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
 [--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills]
-[--multihost [--cover | --traced]] [--shims] (GRID = RxC).  EDGES.npz holds
+[--multihost [--cover | --traced]] [--shims] [--spmm] (GRID = RxC).  EDGES.npz holds
 `edges` (2, E), `roots` (B,) and `n`.
 """
 import dataclasses
@@ -83,8 +91,9 @@ EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
 FT_DIR = OPTS[OPTS.index("--ft") + 1] if "--ft" in OPTS else None
 FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE,
          "--ft", FT_DIR, "--drills", "--multihost", "--cover", "--traced",
-         "--shims")
+         "--shims", "--spmm")
 SHIMS = "--shims" in OPTS
+SPMM = "--spmm" in OPTS
 MULTIHOST = "--multihost" in OPTS
 MULTIHOST_CONFIGS = [(False, "list"), (True, "bitmap"), (True, "delta")] \
     if "--cover" in OPTS else [(False, "list"), (True, "bitmap")] \
@@ -311,6 +320,43 @@ def put_shims(out, grid):
     put(out, f"{tag}_ident", ident.run(graph, root))
 
 
+def put_spmm(out, grid):
+    """The --spmm outputs of one grid (see the module docstring)."""
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import Grid2D, partition_2d
+    from repro.core.partition import partition_edge_vals
+    from repro.core.spmm2d import make_spmm2d, spmm2d_device
+    from repro.core.types import LocalGraph2D
+    from repro.dist.compat import shard_map
+
+    R, C = grid
+    tag = f"{R}x{C}_spmm"
+    mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])
+    g2 = Grid2D.for_vertices(n, R, C)
+    lg = partition_2d(edges, g2)
+    co, ri, nz = (jnp.asarray(a) for a in (lg.col_off, lg.row_idx, lg.nnz))
+    spmm = make_spmm2d(g2, mesh)
+    out[f"{tag}_y"] = np.asarray(spmm(co, ri, nz, jnp.asarray(data["x"])))
+    out[f"{tag}_yi"] = np.asarray(spmm(co, ri, nz, jnp.asarray(data["xi"])))
+    out[f"{tag}_gx"] = np.asarray(jax.grad(
+        lambda x: jnp.sum(spmm(co, ri, nz, x) * jnp.asarray(data["gy"])))(
+            jnp.asarray(data["x"])))
+    w = jnp.asarray(partition_edge_vals(edges, data["weights"], g2))
+
+    def body(co, ri, nz, x, w):
+        g = LocalGraph2D(col_off=co[0, 0], row_idx=ri[0, 0], nnz=nz[0, 0])
+        return spmm2d_device(g, x, grid=g2, row_axes=("r",),
+                             col_axes=("c",), edge_weight=w[0, 0])
+
+    dev, xspec = P(("r",), ("c",)), P(("c", "r"))
+    out[f"{tag}_yw"] = np.asarray(jax.jit(shard_map(
+        body, mesh=mesh, in_specs=(dev, dev, dev, xspec, dev),
+        out_specs=xspec, check_vma=False))(co, ri, nz,
+                                           jnp.asarray(data["x"]), w))
+
+
 def put_grid(out, grid):
     """The parity outputs of one grid (the modes before --ft)."""
     R, C = grid
@@ -343,6 +389,9 @@ elif MULTIHOST:
 elif SHIMS:
     for grid in GRIDS:
         put_shims(out, grid)
+elif SPMM:
+    for grid in GRIDS:
+        put_spmm(out, grid)
 elif FT_DIR is not None:
     for R, C in GRIDS:
         mesh = make_mesh((R, C), ("r", "c"), devices=jax.devices()[:R * C])

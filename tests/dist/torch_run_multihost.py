@@ -3,7 +3,7 @@ held to the JAX package (the port's `tests/dist/run_multihost.py`).
 
     torch_run_multihost.py NPROC LOCAL [EXCHANGE] [--grid RxC]
                            [--mode queries|collectives|surface|features|
-                                   resume]
+                                   resume|spmm]
                            [--configs all|td|adaptive|cover|traced]
                            [--telemetry] [--ft] [--sections S,...]
                            [--ftdir DIR] [--ref REF.npz]
@@ -65,6 +65,13 @@ ELASTIC_CASES entry (grids and stats in the json); "refusal" -- the shrink
 to 1x3 over ranks of two processors, whose ValueError message goes to the
 json.
 
+--mode spmm: every rank plans its blocks of the queries graph (with its
+uint8 weights as `partition_2d_with_vals` lays them out) and runs
+`core.spmm2d.make_spmm2d(grid, mesh)` on random and on integer-valued
+features (`spmm_features`), unweighted and weighted; every rank's whole
+(n, d) outputs must equal the port's stacked grid's on the CPU, bit for
+bit (the same blocks summed in the same order).
+
 --mode resume: every rank loads the JAX package's checkpoint directories
 FTDIR/jax_{RxC}_{tag} of SNAP_CASES and resumes each in the group, under
 "ftx_{tag}_*".
@@ -123,7 +130,7 @@ def parse(argv):
     ap.add_argument("--grid", default=None)
     ap.add_argument("--mode", default="queries",
                     choices=("queries", "collectives", "surface", "features",
-                             "resume"))
+                             "resume", "spmm"))
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--ft", action="store_true")
     ap.add_argument("--sections", default=",".join(SECTIONS))
@@ -459,6 +466,80 @@ def worker_surface(a):
     print(f"RANK {rank} DONE")
 
 
+def spmm_features(n):
+    """--mode spmm's features: (n, 8) float32 random and integer-valued."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((n, 8)).astype(np.float32)
+    return x, rng.integers(-8, 9, (n, 8)).astype(np.float32)
+
+
+def spmm_outputs(a, mesh):
+    """make_spmm2d's outputs on the queries graph over `mesh` (a rank's
+    blocks of a ProcessMesh, or every block of a StackedMesh)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import partition as P
+    from repro_torch.core.spmm2d import make_spmm2d
+    from repro_torch.core.types import Grid2D
+    from repro_torch.dist.topology import Topology
+    n, edges, w = make_inputs(a.scale)
+    grid = Grid2D.for_vertices(n, *a.grid)
+    g, wb = P.partition_2d_with_vals(
+        torch.from_numpy(edges.astype(np.int32)), torch.from_numpy(w), grid,
+        local=Topology(grid, mesh).local, device=mesh.device)
+    spmm = make_spmm2d(grid, mesh)
+    out = {}
+    for tag, x in zip(("x", "xi"), spmm_features(n)):
+        x = torch.from_numpy(x)
+        out[f"y_{tag}"] = host(spmm(g.col_off, g.row_idx, g.nnz, x))
+        out[f"yw_{tag}"] = host(spmm(g.col_off, g.row_idx, g.nnz, x,
+                                     edge_weight=wb))
+    return out
+
+
+def worker_spmm(a):
+    """--mode spmm (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.dist import multihost
+    import torch
+
+    from repro_torch.core.spmm2d import make_spmm2d
+    from repro_torch.core.types import Grid2D
+    rank, _, mesh = join(a)
+    np.savez(os.path.join(a.out, f"rank{rank}.npz"), **spmm_outputs(a, mesh))
+    # the group's wire carries bytes: a tensor needing a gradient is refused
+    n = 1 << a.scale
+    spmm = make_spmm2d(Grid2D.for_vertices(n, *a.grid), mesh)
+    x = torch.zeros((n, 2), requires_grad=True)
+    try:
+        spmm(None, None, None, x)
+    except ValueError as e:
+        assert "forward-only" in str(e), e
+    else:
+        raise AssertionError("spmm2d in a group took a tensor needing grad")
+    multihost.shutdown()
+    print(f"RANK {rank} DONE")
+
+
+def compare_spmm(a, td):
+    """Every rank's spmm outputs against the stacked grid's (this
+    process, the CPU); returns the number of arrays compared."""
+    import numpy as np
+
+    from repro_torch.dist.compat import make_mesh
+    ref = spmm_outputs(a, make_mesh(a.grid, ("r", "c"), device="cpu"))
+    for rank in range(a.nproc):
+        got = np.load(os.path.join(td, f"rank{rank}.npz"))
+        for key, want in ref.items():
+            if not np.array_equal(got[key], want):
+                raise AssertionError(f"rank {rank}: spmm {key} differs from "
+                                     f"the stacked grid's")
+    return a.nproc * len(ref)
+
+
 def flat_tree(out, prefix, tree):
     """A nested dict of arrays into `out` under "{prefix}/{path}"."""
     import numpy as np
@@ -788,6 +869,9 @@ def main(argv):
             n_keys = compare(a, ref, td)
             print(f"multihost {what} exchange={a.exchange}: {n_keys} "
                   f"outputs on every rank bit-identical to the reference")
+        elif a.mode == "spmm":
+            print(f"multihost {what} spmm: {compare_spmm(a, td)} outputs "
+                  f"bit-identical to the stacked grid's")
         else:
             print(f"multihost {what} {a.mode}: "
                   + " | ".join(o.strip().splitlines()[-1] for o in outs))
@@ -802,4 +886,4 @@ if __name__ == "__main__":
         args = parse(sys.argv[1:])
         {"queries": worker_queries, "collectives": worker_collectives,
          "surface": worker_surface, "features": worker_features,
-         "resume": worker_resume}[ROLE](args)
+         "resume": worker_resume, "spmm": worker_spmm}[ROLE](args)

@@ -698,3 +698,179 @@ def test_graph_build_and_bfs_single_card_equal_cpu(cuda_device, monkeypatch):
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert r.returncode == 0 and "(2 validated)" in r.stdout, \
         f"exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}"
+
+
+# ---------------------------------------------------------------------------
+# The graph-learning and recsys models: the card equals the CPU path, which
+# the CPU tests hold to the JAX package (rtol 1e-4, atol 1e-5; a gradient
+# whose largest entry passes 1 in units of it; fp32 matmuls, no TF32)
+# ---------------------------------------------------------------------------
+
+def _card_vs_cpu(cuda_device, model, run):
+    """run(model, device) -> list of tensors, on a CPU model and on its copy
+    on the card; each pair equal within the models' tolerance."""
+    import copy
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    card = copy.deepcopy(model).to(cuda_device)
+    for got, want in zip(run(card, cuda_device), run(model, "cpu")):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-5 * scale, equal_nan=True)
+
+
+def _grads(model):
+    return [torch.zeros_like(p) if p.grad is None else p.grad.detach()
+            for p in model.parameters()]
+
+
+@pytest.mark.gpu
+def test_graphsage_card_equals_cpu(cuda_device):
+    """Full graph on the 2D SpMM (2x2 stacked) and a sampled block."""
+    from repro_torch.core import Grid2D, partition_2d
+    from repro_torch.core.spmm2d import make_spmm2d
+    from repro_torch.dist import make_mesh
+    from repro_torch.graphgen import build_csr, rmat_edges
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.models.gnn import graphsage as GS
+    from repro_torch.sparse import NeighborSampler
+
+    n = 1 << 10
+    edges = rmat_edges(10, 8, torch.Generator().manual_seed(1), "cpu")
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((n, 16), generator=g)
+    labels = torch.randint(0, 5, (n,), generator=g)
+    ro, ci = build_csr(edges, n)
+    block = NeighborSampler(ro.numpy(), ci.numpy(), seed=3).sample_block(
+        torch.arange(64).numpy(), [15, 10])
+    model = GS.init_params(GS.SAGEConfig("s", 2, 32, 16, 5),
+                           torch.Generator().manual_seed(0), "cpu")
+
+    def run(m, dev):
+        grid = Grid2D.for_vertices(n, 2, 2)
+        pg = partition_2d(edges.to(dev), grid)
+        spmm = make_spmm2d(grid, make_mesh((2, 2), ("r", "c"), device=dev))
+        m.zero_grad(set_to_none=True)
+        loss = m.loss(x.to(dev), None, None, labels.to(dev),
+                      spmm=lambda h: spmm(pg.col_off, pg.row_idx, pg.nnz, h))
+        loss.backward()
+        out = [loss.detach()] + _grads(m)
+        m.zero_grad(set_to_none=True)
+        feats = [x[torch.from_numpy(v)].to(dev) for v in block["nodes"]]
+        bl = cross_entropy(m.apply_block(feats, [15, 10]),
+                           labels[:64].to(dev))
+        bl.backward()
+        return out + [bl.detach()] + _grads(m)
+
+    _card_vs_cpu(cuda_device, model, run)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("corr", [1, 3])
+def test_equivariant_card_equals_cpu(cuda_device, corr):
+    from repro_torch.models.gnn import equivariant as EQ
+    g = torch.Generator().manual_seed(4)
+    n, e = 30, 64
+    pos = torch.randn((n, 3), generator=g)
+    spec = torch.randint(0, 8, (n,), generator=g)
+    src = torch.randint(0, n, (e,), generator=g)
+    dst = (src + torch.randint(1, n, (e,), generator=g)) % n
+    model = EQ.init_params(EQ.EquivConfig("e", 2, 16, 8, 5.0,
+                                          correlation_order=corr),
+                           torch.Generator().manual_seed(0), "cpu")
+
+    def run(m, dev):
+        args = [t.to(dev) for t in (spec, pos, src, dst)]
+        en, forces = m.energy_and_forces(*args)
+        m.zero_grad(set_to_none=True)
+        e2, node = m(*args)
+        e2.backward()
+        return [en.detach(), forces, node.detach()] + _grads(m)
+
+    _card_vs_cpu(cuda_device, model, run)
+
+
+@pytest.mark.gpu
+def test_egnn_card_equals_cpu(cuda_device):
+    from repro_torch.models.gnn import egnn as EG
+    g = torch.Generator().manual_seed(5)
+    n, e = 30, 64
+    feats = torch.randn((n, 8), generator=g)
+    pos = torch.randn((n, 3), generator=g)
+    src = torch.randint(0, n, (e,), generator=g)
+    dst = (src + torch.randint(1, n, (e,), generator=g)) % n
+    model = EG.init_params(EG.EGNNConfig("g", 4, 64, 8),
+                           torch.Generator().manual_seed(0), "cpu")
+
+    def run(m, dev):
+        m.zero_grad(set_to_none=True)
+        en, h, x = m(*(t.to(dev) for t in (feats, pos, src, dst)))
+        en.backward()
+        return [en.detach(), h.detach(), x.detach()] + _grads(m)
+
+    _card_vs_cpu(cuda_device, model, run)
+
+
+@pytest.mark.gpu
+def test_deepfm_and_adamw_card_equal_cpu(cuda_device):
+    from repro_torch.models.recsys import deepfm as D
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    cfg = D.DeepFMConfig("d", embed_dim=10, mlp=(64, 64),
+                         vocabs=(64, 1000, 5000, 37, 12000, 8))
+    g = torch.Generator().manual_seed(6)
+    idx = torch.stack([torch.randint(0, v, (512,), generator=g)
+                       for v in cfg.vocabs], 1)
+    y = (torch.rand(512, generator=g) > 0.5).float()
+    user = idx[0, :4]
+    items = idx[:, 4:]
+    model = D.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def run(m, dev):
+        params = dict(m.named_parameters())
+        state = adamw_init(params)
+        outs = []
+        for _ in range(2):
+            m.zero_grad(set_to_none=True)
+            loss = m.loss(idx.to(dev), y.to(dev))
+            loss.backward()
+            outs += [loss.detach()] + _grads(m)
+            adamw_update(AdamWConfig(lr=1e-2), params,
+                         {k: p.grad for k, p in params.items()}, state)
+        with torch.no_grad():
+            outs.append(m.score_candidates(user.to(dev), items.to(dev)))
+        return outs + [p.detach() for p in m.parameters()]
+
+    _card_vs_cpu(cuda_device, model, run)
+
+
+@pytest.mark.gpu
+def test_sparse_ops_card_equal_cpu(cuda_device):
+    from repro_torch import sparse as SP
+    g = torch.Generator().manual_seed(7)
+    n, e = 300, 4000
+    h = torch.randint(-8, 9, (n, 6), generator=g).float()
+    src = torch.randint(-2, n + 2, (e,), generator=g)
+    dst = torch.randint(-n, n + 3, (e,), generator=g)
+    valid = torch.rand(e, generator=g) < 0.7
+    off = torch.cumsum(torch.randint(0, 5, (41,), generator=g), 0)
+    off = torch.cat([torch.zeros(1, dtype=off.dtype), off])
+    flat = torch.randint(-1, n + 1, (int(off[-1]),), generator=g)
+    bags = torch.randint(-1, n, (40, 7), generator=g)
+    for dev in (cuda_device,):
+        for reduce in ("sum", "mean", "max"):
+            for v in (None, valid):
+                got = SP.gather_scatter(h.to(dev), src.to(dev), dst.to(dev),
+                                        n, reduce=reduce, valid=None if v
+                                        is None else v.to(dev))
+                want = SP.gather_scatter(h, src, dst, n, reduce=reduce,
+                                         valid=v)
+                torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0
+                                           if reduce != "mean" else 1e-6)
+        msg = h[src.clamp(0, n - 1)]
+        for op in (SP.segment_sum, SP.segment_max):
+            torch.testing.assert_close(op(msg.to(dev), dst.to(dev), n).cpu(),
+                                       op(msg, dst, n), rtol=0, atol=0)
+        for args in ((bags,), (flat, off)):
+            got = SP.embedding_bag(h.to(dev), *(a.to(dev) for a in args))
+            torch.testing.assert_close(got.cpu(), SP.embedding_bag(h, *args),
+                                       rtol=0, atol=0)

@@ -8,7 +8,9 @@
     exits non-zero naming --device cpu;
   * scripts/torch_quickstart.py, torch_distributed_bfs.py,
     torch_obs_quickstart.py and torch_serve_quickstart.py run at SCALE 8
-    with --device cpu and print the JAX examples' lines.
+    with --device cpu and print the JAX examples' lines;
+  * scripts/torch_gnn_fullgraph_2d.py trains GraphSAGE on the 2D SpMM at
+    the example's SCALE 10 for its 80 steps and prints its loss line.
 """
 import os
 import re
@@ -60,6 +62,8 @@ def test_bfs_run_needs_a_card_or_device_cpu():
     ("torch_serve_quickstart.py", ["8", "8"],
      r"OK \(coalesced; every result bit-identical to a direct session "
      r"call\)"),
+    ("torch_gnn_fullgraph_2d.py", [],
+     r"loss \d+\.\d{3} -> \d+\.\d{4} \(learning works\)"),
 ])
 def test_script_twins_run_on_the_cpu(script, args, expect):
     res = _run([os.path.join("scripts", script)] + args

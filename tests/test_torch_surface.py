@@ -15,7 +15,9 @@ cache tests):
     `wide_total`, `teps`;
   * every name of the JAX packages' `__all__` / import lists resolves on
     the port, except those a later ROADMAP item brings and those with no
-    counterpart in the port (each listed here with its reason).
+    counterpart in the port (each listed here with its reason); for the
+    graph-learning and recsys modules every module-level name of each JAX
+    module has a counterpart in the port's module or model class.
 
 Inputs: `repro.graphgen.rmat_edges(jax.random.key(0), 8, 8)` as numpy,
 uint8 weights `(|31 u + v| mod 255) + 1`, roots from
@@ -42,15 +44,51 @@ SCALE, EF = 8, 8
 N = 1 << SCALE
 GRIDS = [(1, 1), (2, 2)]
 # JAX names whose port comes with a later ROADMAP item
-WAITING = {}
+WAITING = {"repro.configs": {
+    "ARCHS": "configs/registry.py, ROADMAP A16 part 2",
+    "get_arch": "configs/registry.py, ROADMAP A16 part 2",
+    "DryrunSpec": "the port's dry run (launch/dryrun.py), ROADMAP A16 "
+                  "part 2"}}
 # JAX names with no counterpart in the port, and why
 JAX_ONLY = {"repro.dist": {
     "shard_map": "the port runs no shard_map program: the stacked grid's "
                  "collectives are tensor operations, a process group's "
                  "torch.distributed calls",
     "axis_types_kwargs": "torch meshes have no axis types"}}
+# the graph-learning and recsys modules: each JAX module-level function,
+# class and constant has a counterpart of the same name in the port's
+# module, or is a method of the module's nn.Module (under METHODS' name),
+# or is listed here
+MODULE_CLASSES = {"models.gnn.graphsage": "GraphSAGE",
+                  "models.gnn.equivariant": "EquivariantNet",
+                  "models.gnn.egnn": "EGNN",
+                  "models.recsys.deepfm": "DeepFM"}
+METHODS = {"apply": "forward", "loss_fn": "loss"}
+_NEXT = "the port's dry run, ROADMAP A16 part 2"
+MODULE_WAITING = {
+    "configs.common": {"DryrunSpec": _NEXT, "abstract": _NEXT},
+    "configs.gnn_common": {"build_sage_dryrun": _NEXT,
+                           "build_equiv_dryrun": _NEXT,
+                           "build_egnn_dryrun": _NEXT},
+    "configs.recsys_common": {"build_deepfm_dryrun": _NEXT},
+    "configs.bfs_rmat": {"build_bfs_dryrun": _NEXT}}
+MODULE_JAX_ONLY = {
+    "models.recsys.deepfm": {
+        "param_shardings": "PartitionSpecs of the table over a device mesh; "
+                           "the port holds the table on one card"},
+    "models.gnn.e3": {
+        "I3": "a module-level identity array; the port builds it on the "
+              "features' device and dtype (`e3._eye`)"}}
+PORTED_MODULES = (
+    "sparse.segment", "sparse.embedding_bag", "sparse.sampler",
+    "core.spmm2d", "optim.adamw", "optim.grad_compress",
+    "models.gnn.graphsage", "models.gnn.e3", "models.gnn.equivariant",
+    "models.gnn.egnn", "models.recsys.deepfm", "configs.common",
+    "configs.gnn_common", "configs.recsys_common", "configs.bfs_rmat",
+    "configs.graphsage_reddit", "configs.nequip", "configs.mace",
+    "configs.egnn", "configs.deepfm")
 PACKAGES = ("algos", "api", "core", "ckpt", "serve", "obs", "runtime",
-            "scenarios", "graphgen", "dist")
+            "scenarios", "graphgen", "dist", "sparse", "optim", "configs")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -359,6 +397,38 @@ def test_every_jax_name_resolves_on_the_port(pkg):
     for name in list(waiting) + list(jax_only):
         assert name in _public_names(jax_mod), name
         assert not hasattr(port, name), f"{name} arrived: drop it from the list"
+
+
+def _defined_names(mod) -> list:
+    """A module's own public functions, classes and UPPER_CASE constants
+    (not what it imports)."""
+    out = []
+    for k, v in vars(mod).items():
+        if k.startswith("_") or isinstance(v, types.ModuleType):
+            continue
+        if callable(v) and getattr(v, "__module__", None) == mod.__name__:
+            out.append(k)
+        elif not callable(v) and k.isupper():
+            out.append(k)
+    return out
+
+
+@pytest.mark.parametrize("name", PORTED_MODULES)
+def test_every_jax_module_name_has_a_counterpart(name):
+    jax_mod = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    cls = getattr(port, MODULE_CLASSES[name]) if name in MODULE_CLASSES \
+        else None
+    waiting = MODULE_WAITING.get(name, {})
+    jax_only = MODULE_JAX_ONLY.get(name, {})
+    missing = [k for k in _defined_names(jax_mod)
+               if k not in waiting and k not in jax_only
+               and not hasattr(port, k)
+               and not (cls and hasattr(cls, METHODS.get(k, k)))]
+    assert missing == []
+    for k in list(waiting) + list(jax_only):
+        assert k in _defined_names(jax_mod), k
+        assert not hasattr(port, k), f"{k} arrived: drop it from the list"
 
 
 def test_kernel_build_and_load_run_once_under_two_threads(tmp_path,
