@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's two session paths, its kernel-stage surface,
 its fault-tolerant level loop, its serving layer, its process-group
-topology, its launcher, its graph build and single-device BFS, and its
-graph-learning and recsys models once on one NVIDIA GPU and check them.
+topology, its launcher, its graph build and single-device BFS, its
+graph-learning and recsys models and its LMs once on one NVIDIA GPU and
+check them.
 
-    python3 chip_smoke.py [--scale 26] [--roots 32] [--td-roots 16]
-                          [--batch 8] [--dir-batch 4] [--sssp-roots 4]
+    python3 chip_smoke.py [--scale 26] [--roots 12] [--td-roots 11]
+                          [--batch 4] [--dir-batch 4] [--sssp-roots 2]
                           [--delta-scale 22] [--seed 1]
 
 Phases, one line or more each on stdout:
@@ -142,7 +143,7 @@ Phases, one line or more each on stdout:
   11. delta    after the SCALE 26 graph is freed, the delta codec at its
                limit: R-MAT SCALE --delta-scale on an 8x8 grid, so S =
                65536 (weights as above): `bfs` top-down and direction-
-               optimised with fold_codec="delta" from 4 roots, equal to
+               optimised with fold_codec="delta" from 2 roots, equal to
                "list" (levels, preds, n_levels, edges_scanned) and
                validated; CC, one SSSP root and the multi-BFS under delta
                equal to list; B5 and B6 launched (> 0), then on one real
@@ -151,8 +152,8 @@ Phases, one line or more each on stdout:
   14. exch-obs after 10, on the resident SCALE 26 graph: the butterfly
                exchange (`BFSConfig(exchange="butterfly")`, one stage at
                C = 2) with `telemetry=True`: top-down BFS from phase 4's
-               first 4 roots equal to phase 4, direction-optimised (bitmap)
-               from 4 roots equal to phase 7, CC and one SSSP root equal
+               first 2 roots equal to phase 4, direction-optimised (bitmap)
+               from 2 roots equal to phase 7, CC and one SSSP root equal
                to phase 9; each `LevelTrace` against its output (scanned
                total, frontier per level from the levels, n_levels, the
                wire formula, log2(C) messages a processor a level,
@@ -163,7 +164,7 @@ Phases, one line or more each on stdout:
   15. ft       after 14, mid-traversal fault tolerance on the resident
                SCALE 26 graph (`BFSConfig(fault_tolerance=True)`, every
                query with a `RecoveryPlan`): (a) the segmented level loop
-               -- top-down BFS from phase 4's first 4 roots at ckpt_every=1
+               -- top-down BFS from phase 4's first 2 roots at ckpt_every=1
                equal to phase 4, direction-optimised (bitmap) from 2 roots
                equal to phase 7, CC and one SSSP root at ckpt_every=2 equal
                to phase 9, each search's wall time beside the same root's
@@ -220,15 +221,16 @@ Phases, one line or more each on stdout:
                (host-staged gloo, a file:// store), a 2x2 grid, one
                processor each, every rank planning only its block from the
                edge file it streams a piece at a time; under the flat and
-               the butterfly exchange: top-down `bfs` of phase 4's first 2
-               roots and `bfs(roots[:2])` (under the butterfly
-               `bfs(roots[:1])`), `connected_components()`,
+               the butterfly exchange: top-down `bfs` of phase 4's first
+               root and, under flat, `bfs(roots[:2])` (the second root
+               alone in a flat warm-up), `connected_components()`,
                `sssp` of phase 9's first root and the direction-optimised
                (bitmap) `bfs` of phase 7's first root -- every output field
                on every rank equal to the stacked session's.  The NCCL leg:
                one rank holding the whole 2x2 grid, top-down `bfs` and CC
                through the same group code path, equal likewise, each
-               query run twice (both passes printed).  Then the search's
+               query run once (twice until phase 20 came).  Then the
+               search's
                contract across the group, each rank held to stacked
                references the parent computes on the resident graph before
                the ranks start (build/phase17): (a) a top-down `bfs` with
@@ -245,7 +247,7 @@ Phases, one line or more each on stdout:
                2x2 -> 1x3 of phase 15 (e)'s top-down `bfs` (its loss at
                level 3): rank 3 leaves, ranks 0-2 re-plan from the edge
                file, every rank's output equal to phase 15 (e)'s.  The NCCL
-               leg runs (a) and (c) for BFS twice.  Printed:
+               leg runs (a) and (c) for BFS.  Printed:
                each rank's wall time per query and its seconds inside
                row_gather / col_all_to_all / psum_all (and the outputs'
                fetch), timed by wrappers this script puts around the
@@ -260,22 +262,22 @@ Phases, one line or more each on stdout:
                differs or outlives the leg's deadline fails the phase;
   18. launch   after 17, the card's memory free again: (a) the launcher,
                `python3 -m repro_torch.launch.bfs_run --grid 2x2 --scale
-               26 --ef 16 --roots 2 --validate 2` (--grid, --scale, --ef
+               26 --ef 16 --roots 1 --validate 1` (--grid, --scale, --ef
                and --edge-chunk follow this script's) and the same with
                `--direction --fold bitmap`, each a child process (the
                launcher's `main`, then its launch counts and peak): exit
-               0, the JAX driver's summary line with "(2 validated)" and
+               0, the JAX driver's summary line with "(1 validated)" and
                TEPS > 0, B1 and B2 (and B3, B4 and B7) launched; its line,
                seconds and peak printed; (b) the four Table 3 analogs
                (`graphgen.realworld_analog`) at the paper's scales
                (scale_reduction=0; com-Friendster: SCALE 25, edgefactor
                27, 1,811,939,328 edges), each planned 2x2 and searched
-               from 2 roots, validated on the card, B1 and B2 launched;
+               from 1 root, validated on the card, B1 and B2 launched;
                (c) on the com-Friendster analog, `graphgen.build_csc` on
-               the card, then `core.bfs_single` from the same 2 roots:
+               the card, then `core.bfs_single` from the same root:
                levels equal to the session's, preds validated, seconds a
                root against the session's, and the peak memory;
-  19. models   after 18, last, in a child process on the freed card
+  19. models   after 18, in a child process on the freed card
                (`scripts/torch_models_card.py`, its lines printed as they
                come): (a) GraphSAGE-Reddit on minibatch_lg, 20 sampled
                steps of batch 1024 (fanout 15-10) on 114,615,892 edges,
@@ -294,6 +296,23 @@ Phases, one line or more each on stdout:
                calls), serve_bulk and retrieval_cand.  Every check fails
                the phase; no kernel of csrc/ runs in it (JAX computes
                these models outside Pallas);
+  20. lm       after 19, last, in a child process on the freed card
+               (`scripts/torch_lm_card.py`): (a) h2o-danube-1.8b at full
+               width, 64 greedy steps at decode_32k's batch 128 over the
+               4096-slot ring buffer, 16 long_500k steps at batch 1 from
+               position 524,272, then in fp32 at 2 layers 4160 tokens
+               teacher-forced through `decode_step` (the buffer wraps),
+               the last 64 next tokens = `forward`'s argmax, and forward
+               card = CPU; (b) qwen2-moe-a2.7b at full width (64 experts,
+               60 routed), 32 greedy steps at batch 8 over a 4096-token
+               cache, then in fp32 at 2 layers logits, aux and routing
+               card = CPU, no copy to experts 60-63; (c) gemma2-2b at full
+               width, 3 training steps at seq 4096, batch 1, remat on,
+               bf16 weights and fp32 moments, then in fp32 at 2 layers the
+               first step card = CPU and remat on = off; (d) `smoke_lm` of
+               the five configs on the card.  Every check fails the phase;
+               no kernel of csrc/ runs in it (JAX computes the LM, the MoE
+               layer and the train step outside Pallas);
   6. report    every phase's peak memory, the {"kernels": [...]} line,
                the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
@@ -322,6 +341,9 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, published peak
 TD_EQUAL_ROOTS = 8               # direction roots held to the top-down path
+# phases 14 and 15 (a): roots a program runs on (4 until phase 20 came;
+# cut to 2 for its time)
+PHASE14_15_ROOTS = 2
 I32_MAX = 2**31 - 1
 BU_BLOCK_LANES = 1024            # stage::kLanes * kThreads, csrc/bottomup.cu
 WALK_SLOTS_PER_LANE = 64         # stage::kWalkSlotsPerLane, csrc/stages.cuh
@@ -1172,7 +1194,7 @@ def run_exchange_obs(torch, args, graph, td_roots, scalar, dscalar, vals,
     # butterfly ships C/2 a stage over log2(C) stages
     wire = (4 * S + 4) * (C // 2) * log2c
     zero_counts()
-    n_td = min(4, len(scalar))
+    n_td = min(PHASE14_15_ROOTS, len(scalar))
     for k, r in enumerate(td_roots[:n_td]):
         out, dt = timed(torch, lambda: sess.bfs(r))
         lv, pr, nl, es = scalar[k]
@@ -1197,7 +1219,7 @@ def run_exchange_obs(torch, args, graph, td_roots, scalar, dscalar, vals,
                                     fold_codec="bitmap", exchange="butterfly",
                                     telemetry=True))
     zero_counts()
-    n_dir = min(4, len(dscalar))
+    n_dir = min(PHASE14_15_ROOTS, len(dscalar))
     for k, r in enumerate(td_roots[:n_dir]):
         out, dt = timed(torch, lambda: dsess.bfs(r))
         lv, pr, nl, es, dr = dscalar[k]
@@ -1340,7 +1362,7 @@ def run_ft(torch, args, graph, td_roots, scalar, dscalar, vals, report,
     assert eng.fault_tolerance and eng.expand_path == "kernel" \
         and eng.fold_path == "kernel"
     zero_counts()
-    n_td = min(4, len(scalar))
+    n_td = min(PHASE14_15_ROOTS, len(scalar))
     rep["td_s"] = []
     for k, r in enumerate(td_roots[:n_td]):
         plan = ft_plan(torch)
@@ -1995,6 +2017,9 @@ def run_exchange_8x8(torch, graph, knobs, roots, report):
     report["exch_8x8"] = {"rows": rows, "seconds": secs, "peak_bytes": peak}
 
 
+DELTA_ROOTS = 2                  # phase 11 (4 until phase 20 came)
+
+
 def run_delta(torch, dev, args, kernels, report, phases):
     """Phase 11: the delta codec at its limit, S = 65536 on an 8x8 grid:
     BFS both directions, CC, SSSP and multi-BFS equal to the list codec;
@@ -2021,7 +2046,8 @@ def run_delta(torch, dev, args, kernels, report, phases):
     cand = torch.nonzero(deg > 0).flatten()
     roots = cand[torch.randperm(cand.numel(), device=dev,
                                 generator=torch.Generator(device=dev)
-                                .manual_seed(args.seed))[:4]].tolist()
+                                .manual_seed(args.seed))[:DELTA_ROOTS]]
+    roots = roots.tolist()
     del deg, cand
     log(f"[11 delta] R-MAT SCALE {scale} on 8x8: S = {S}, "
         f"{edges.shape[1]} directed edges, planned in {plan_s:.1f} s; "
@@ -2686,18 +2712,16 @@ def group_features(torch, args, graph, edges, mesh, gdir, ints, n, run,
             # rank 0's write and every rank's wait for its outcome
             (recovery, "_save_together",
              timed(recovery, "_save_together", rep["ckpt_s"]))]
-    passes = ("", "#2") if leg == "nccl" else ("",)
 
     # (a) a top-down search with telemetry=True: its trace == stacked
     want = dict(np.load(os.path.join(gdir, "ref_trace.npz")))
     ts = graph.session(BFSConfig(**base, telemetry=True))
-    for p in passes:
-        out = run("traced_bfs" + p, "flat", lambda: ts.bfs(r0),
-                  bfs_checks("td0"), b1b2)
-        for f, w in want.items():
-            if not np.array_equal(np.asarray(getattr(out.trace, f)), w):
-                raise AssertionError(f"rank {k}: trace field {f} differs "
-                                     f"from the stacked session's")
+    out = run("traced_bfs", "flat", lambda: ts.bfs(r0), bfs_checks("td0"),
+              b1b2)
+    for f, w in want.items():
+        if not np.array_equal(np.asarray(getattr(out.trace, f)), w):
+            raise AssertionError(f"rank {k}: trace field {f} differs "
+                                 f"from the stacked session's")
     rep["trace_levels"] = int(out.trace.n_levels)
 
     # (b) Graph500 validation over every rank's share, passing, then one
@@ -2745,51 +2769,49 @@ def group_features(torch, args, graph, edges, mesh, gdir, ints, n, run,
     for what, call, checks, need in queries:
         stacked = TraversalCheckpointer(
             os.path.join(gdir, f"ref_snap_{what}"), what).load()
-        for p in passes:
-            d = os.path.join(gdir, f"ckpt-{leg}-{what}{p}")
-            plan = ft_plan(torch, injector=DeviceLossInjector(
-                3, transient=True), checkpointer=TraversalCheckpointer(
-                    d, what))
-            n0 = len(rep["ckpt_s"])
-            out = run(f"ft_{what}" + p, "flat", lambda: call(plan), checks,
-                      need)
-            check_retries(plan, f"rank {k}'s FT {what}")
-            if plan.injector.count != 1:
-                raise AssertionError(f"rank {k}: FT {what} fired "
-                                     f"{plan.injector.count} times")
-            retries = plan.stats["retries"]
-            t0 = time.perf_counter()
-            disk = TraversalCheckpointer(d, what).load()
-            load_s = time.perf_counter() - t0
-            st = disk["arrays"]["st"]
-            st = st.get("b0", st)
-            final = st["level"] if what == "bfs" else st["val"]
-            want = ref("td0_level" if what == "bfs" else "cc_labels")[:n]
-            if not np.array_equal(final, want):
-                raise AssertionError(f"rank {k}: the checkpoint directory's "
-                                     f"last {what} snapshot differs")
-            del out, disk, st, final
-            plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=1),
-                           retries=0)
-            e0 = len(rep["export_s"])
-            try:
-                call(plan)
-                raise AssertionError(f"rank {k}: the {what} loss did not "
-                                     f"escalate")
-            except UnrecoverableLoss as e:
-                snap = e.snapshot
-            bad = snapshot_equal(np, snap["arrays"], stacked["arrays"])
-            if bad is not None or snap["meta"] != stacked["meta"]:
-                raise AssertionError(f"rank {k}: the {what} loss snapshot "
-                                     f"differs from the stacked one at "
-                                     f"{bad or 'meta'}")
-            rep["ft"].append({
-                "query": what + p, "checkpoints": len(rep["ckpt_s"]) - n0,
-                "retries": retries, "load_s": load_s,
-                "snapshot_bytes": snapshot_bytes(snap["arrays"]),
-                "loss_export_s": rep["export_s"][e0:],
-                "levels_done": snap["meta"]["levels_done"]})
-            del snap
+        d = os.path.join(gdir, f"ckpt-{leg}-{what}")
+        plan = ft_plan(torch, injector=DeviceLossInjector(
+            3, transient=True), checkpointer=TraversalCheckpointer(
+                d, what))
+        n0 = len(rep["ckpt_s"])
+        out = run(f"ft_{what}", "flat", lambda: call(plan), checks, need)
+        check_retries(plan, f"rank {k}'s FT {what}")
+        if plan.injector.count != 1:
+            raise AssertionError(f"rank {k}: FT {what} fired "
+                                 f"{plan.injector.count} times")
+        retries = plan.stats["retries"]
+        t0 = time.perf_counter()
+        disk = TraversalCheckpointer(d, what).load()
+        load_s = time.perf_counter() - t0
+        st = disk["arrays"]["st"]
+        st = st.get("b0", st)
+        final = st["level"] if what == "bfs" else st["val"]
+        want = ref("td0_level" if what == "bfs" else "cc_labels")[:n]
+        if not np.array_equal(final, want):
+            raise AssertionError(f"rank {k}: the checkpoint directory's "
+                                 f"last {what} snapshot differs")
+        del out, disk, st, final
+        plan = ft_plan(torch, injector=DeviceLossInjector(3, fires=1),
+                       retries=0)
+        e0 = len(rep["export_s"])
+        try:
+            call(plan)
+            raise AssertionError(f"rank {k}: the {what} loss did not "
+                                 f"escalate")
+        except UnrecoverableLoss as e:
+            snap = e.snapshot
+        bad = snapshot_equal(np, snap["arrays"], stacked["arrays"])
+        if bad is not None or snap["meta"] != stacked["meta"]:
+            raise AssertionError(f"rank {k}: the {what} loss snapshot "
+                                 f"differs from the stacked one at "
+                                 f"{bad or 'meta'}")
+        rep["ft"].append({
+            "query": what, "checkpoints": len(rep["ckpt_s"]) - n0,
+            "retries": retries, "load_s": load_s,
+            "snapshot_bytes": snapshot_bytes(snap["arrays"]),
+            "loss_export_s": rep["export_s"][e0:],
+            "levels_done": snap["meta"]["levels_done"]})
+        del snap
     for owner, name, fn in orig:
         setattr(owner, name, fn)
     torch.cuda.empty_cache()
@@ -2945,32 +2967,23 @@ def group_rank_main(args) -> int:
     # direction session below drops it), (d) last
     features = group_features(torch, args, graph, edges, mesh, gdir, ints,
                               n, run, bfs_checks, ref, spent)
-    # the NCCL leg runs each query twice: two earlier runs of its CC took
-    # 0.971 s and 2.710 s
-    passes = ("", "#2") if leg == "nccl" else ("",)
+    # cut for phase 20's time: every query runs once (the NCCL leg ran
+    # each twice), r1 alone runs in the warm-up only, and the butterfly
+    # pass runs no batch (its batch of r0 was the scalar search's B = 1
+    # entry again)
     for ex in exchanges:
         cfg = BFSConfig(grid=(R, C), edge_chunk=args.edge_chunk,
                         exchange=ex)
         s = graph.session(cfg)
-        for p in passes:
-            run("bfs_r0" + p, ex, lambda: s.bfs(r0), bfs_checks("td0"),
-                b1b2)
-        if leg == "gloo":
-            run("bfs_r1", ex, lambda: s.bfs(r1), bfs_checks("td1"), b1b2)
-            # the butterfly pass's batch holds one root: with two the
-            # script ran 992.9 s of its 1200 s
-            if ex == "flat":
-                run("bfs_batch", ex, lambda: s.bfs([r0, r1]),
-                    lambda o: bfs_checks("td0", 0)(o)
-                    + bfs_checks("td1", 1)(o), b1b2)
-            else:
-                run("bfs_batch", ex, lambda: s.bfs([r0]),
-                    bfs_checks("td0", 0), b1b2)
-        for p in passes:
-            run("cc" + p, ex, s.connected_components,
-                lambda o: [("labels", ref("cc_labels")),
-                           ("n_iters", np.asarray(ints["cc_iters"])),
-                           ("edges_scanned", np.asarray(ints["cc_edges"]))])
+        run("bfs_r0", ex, lambda: s.bfs(r0), bfs_checks("td0"), b1b2)
+        if leg == "gloo" and ex == "flat":
+            run("bfs_batch", ex, lambda: s.bfs([r0, r1]),
+                lambda o: bfs_checks("td0", 0)(o)
+                + bfs_checks("td1", 1)(o), b1b2)
+        run("cc", ex, s.connected_components,
+            lambda o: [("labels", ref("cc_labels")),
+                       ("n_iters", np.asarray(ints["cc_iters"])),
+                       ("edges_scanned", np.asarray(ints["cc_edges"]))])
         if leg != "gloo":
             continue
         run("sssp", ex, lambda: s.sssp(ints["sssp_root"]),
@@ -3008,6 +3021,9 @@ def group_rank_main(args) -> int:
 
 
 LAUNCH_TIMEOUT_S = 300           # phase 18: a launcher run's deadline
+# phase 18: roots of a launcher run and of an analog (2 until phase 20
+# came; cut to 1 for its time)
+LAUNCH_ROOTS = 1
 LAUNCH_RUNS = (                  # phase 18 (a): (tag, extra flags, kernels)
     ("top-down", (), ("expand_chunk", "compact_rows")),
     ("direction", ("--direction", "--fold", "bitmap"),
@@ -3031,7 +3047,8 @@ def run_launcher(args, flags):
     counts and peak, seconds); raises unless it exits 0 in time."""
     cmd = [sys.executable, "-c", LAUNCH_BOOT, "--grid", args.grid,
            "--scale", str(args.scale), "--ef", str(args.edge_factor),
-           "--roots", "2", "--validate", "2", "--edge-chunk",
+           "--roots", str(LAUNCH_ROOTS), "--validate", str(LAUNCH_ROOTS),
+           "--edge-chunk",
            str(args.edge_chunk), *flags]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(HERE, "src"), HERE]))
@@ -3048,12 +3065,13 @@ def run_launcher(args, flags):
 
 
 def check_summary(line: str, direction: bool) -> float:
-    """The JAX driver's summary line, two roots validated; returns its
+    """The JAX driver's summary line, every root validated; returns its
     harmonic TEPS (> 0)."""
     import re
+    k = LAUNCH_ROOTS
     m = re.fullmatch(
         r"grid=\d+x\d+ scale=\d+ ef=\d+ fold=(\w+) dir=(True|False): "
-        r"harmonic TEPS (\S+) \(2 validated\) \| 2-root sweep \S+s, "
+        rf"harmonic TEPS (\S+) \({k} validated\) \| {k}-root sweep \S+s, "
         r"amortised (\S+) TEPS, harmonic (\S+) TEPS", line)
     if m is None or m.group(2) != str(direction):
         raise AssertionError(f"unexpected launcher summary: {line!r}")
@@ -3124,7 +3142,7 @@ def run_launch(torch, args, report, phases):
         cand = torch.nonzero(degrees(edges[0], n) > 0).flatten()
         pick = torch.randperm(cand.numel(), device=dev, generator=torch
                               .Generator(device=dev).manual_seed(args.seed))
-        roots = cand[pick[:2]].tolist()
+        roots = cand[pick[:LAUNCH_ROOTS]].tolist()
         del cand, pick
         sess = graph.session()
         zero_counts()
@@ -3186,29 +3204,45 @@ def run_launch(torch, args, report, phases):
 
 
 MODELS_TIMEOUT_S = 300           # phase 19: the child's deadline
+LM_TIMEOUT_S = 300               # phase 20: the child's deadline
+
+
+def run_card_script(torch, args, phase: int, script: str,
+                    timeout: int) -> dict:
+    """`scripts/{script}` in a child process on the freed card; its lines
+    print as they come, its report is returned."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(HERE, "build", f"phase{phase}.json")
+    if os.path.exists(out):
+        os.remove(out)
+    res = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts", script),
+         "--seed", str(args.seed), "--out", out], cwd=HERE, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"phase {phase} failed: the child exited "
+                             f"{res.returncode}")
+    with open(out) as f:
+        rep = json.load(f)
+    os.remove(out)
+    return rep
 
 
 def run_models(torch, args, report, phases):
     """Phase 19: `scripts/torch_models_card.py` in a child process (see the
-    module docstring); its lines print as they come, its report joins this
-    one."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    out = os.path.join(HERE, "build", "phase19.json")
-    if os.path.exists(out):
-        os.remove(out)
-    res = subprocess.run(
-        [sys.executable, os.path.join(HERE, "scripts",
-                                      "torch_models_card.py"),
-         "--seed", str(args.seed), "--out", out], cwd=HERE,
-        timeout=MODELS_TIMEOUT_S)
-    if res.returncode != 0:
-        raise AssertionError(f"phase 19 failed: the child exited "
-                             f"{res.returncode}")
-    with open(out) as f:
-        report["models"] = json.load(f)
-    os.remove(out)
+    module docstring)."""
+    report["models"] = run_card_script(torch, args, 19,
+                                       "torch_models_card.py",
+                                       MODELS_TIMEOUT_S)
     phases.end("19 models")
+
+
+def run_lm(torch, args, report, phases):
+    """Phase 20: `scripts/torch_lm_card.py` in a child process (see the
+    module docstring)."""
+    report["lm"] = run_card_script(torch, args, 20, "torch_lm_card.py",
+                                   LM_TIMEOUT_S)
+    phases.end("20 lm")
 
 
 def main() -> int:
@@ -3216,16 +3250,16 @@ def main() -> int:
     ap.add_argument("--scale", type=int, default=26)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--roots", type=int, default=32,
+    ap.add_argument("--roots", type=int, default=12,
                     help="timed roots of the direction-optimised path")
-    ap.add_argument("--td-roots", type=int, default=16,
+    ap.add_argument("--td-roots", type=int, default=11,
                     help="timed roots of the top-down path")
-    ap.add_argument("--batch", type=int, default=8,
+    ap.add_argument("--batch", type=int, default=4,
                     help="roots of the top-down batched search (its (B, n) "
                          "output must fit on the card beside the graph)")
     ap.add_argument("--dir-batch", type=int, default=4,
                     help="roots of the direction path's batched search")
-    ap.add_argument("--sssp-roots", type=int, default=4,
+    ap.add_argument("--sssp-roots", type=int, default=2,
                     help="phase-4 roots each run through sssp (phase 9)")
     ap.add_argument("--grid", default="2x2")
     ap.add_argument("--edge-chunk", type=int, default=1 << 22)
@@ -3889,6 +3923,7 @@ def main() -> int:
         shutil.rmtree(gdir, ignore_errors=True)
     run_launch(torch, args, report, phases)
     run_models(torch, args, report, phases)
+    run_lm(torch, args, report, phases)
     report["kernels"] = kernels
     report["phase_s"] = phases.seconds
     report["script_s"] = time.perf_counter() - t_script

@@ -32,6 +32,7 @@ import shutil
 import threading
 
 import numpy as np
+import torch
 
 
 def _tree_paths(tree, prefix=""):
@@ -49,6 +50,14 @@ def _tree_paths(tree, prefix=""):
     if isinstance(tree, (list, tuple)):
         return None
     return [prefix[:-1]]
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a host array: a tensor (a parameter, on any device) is
+    detached and copied off its device."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
 
 
 def _flatten(tree) -> list:
@@ -104,7 +113,7 @@ class CheckpointManager:
 
     def save(self, step: int, tree, extra_meta: dict | None = None):
         self._raise_pending()
-        host_leaves = [np.asarray(leaf) for leaf in _flatten(tree)]
+        host_leaves = [_host(leaf) for leaf in _flatten(tree)]
         treedef = _treedef_str(tree)
         paths = _tree_paths(tree)
         if self._thread is not None:

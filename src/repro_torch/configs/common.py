@@ -1,7 +1,7 @@
 """Shared config plumbing, the port of `repro/configs/common.py`: the
 mesh-axis descriptor and the architecture record.  The JAX module's
 `DryrunSpec` and `abstract` describe an XLA lowering; their counterpart
-comes with the port's dry run (`launch/dryrun.py`, ROADMAP A16 part 2)."""
+comes with the port's dry run (`launch/dryrun.py`, ROADMAP A16 part 3)."""
 from __future__ import annotations
 
 import dataclasses

@@ -12,7 +12,7 @@ Distribution: full-graph aggregation for graphsage runs on the paper's 2D
 expand/fold SpMM (`repro_torch.core.spmm2d`) -- the adjacency is
 partitioned exactly like the BFS.  The JAX module's `build_*_dryrun`
 builders lower these shapes for a device mesh; their counterpart comes with
-the port's dry run (ROADMAP A16 part 2).  The smokes run on `device`
+the port's dry run (ROADMAP A16 part 3).  The smokes run on `device`
 (None = CUDA, raising without a card; "cpu" for the CPU tests), their
 random draws from one torch.Generator seeded 0.
 """

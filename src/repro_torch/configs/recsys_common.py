@@ -8,7 +8,7 @@ Shapes (assignment):
 
 The JAX module's `build_deepfm_dryrun` row-shards the 33.8M x 10 table over
 a device mesh; its counterpart comes with the port's dry run (ROADMAP A16
-part 2).  The port holds the table on one card.
+part 3).  The port holds the table on one card.
 """
 from __future__ import annotations
 

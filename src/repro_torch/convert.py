@@ -77,6 +77,16 @@ def _flatten(tree, prefix=""):
         yield prefix[:-1], tree
 
 
+def _tensor(leaf) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor; JAX's bfloat16 leaves (numpy's
+    `ml_dtypes.bfloat16`, which `torch.from_numpy` refuses) carried bit for
+    bit through a uint16 view."""
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
     """Copy a JAX parameter tree into `module` (in place, returned): every
     leaf to the parameter named by its path.  Raises ValueError on a
@@ -90,7 +100,7 @@ def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
         raise ValueError(f"parameter tree does not fit the module: missing "
                          f"{missing}, extra {extra}")
     for name, p in params.items():
-        src = torch.from_numpy(np.array(leaves[name], copy=True))
+        src = _tensor(leaves[name])
         if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
             raise ValueError(
                 f"{name}: the tree holds {tuple(src.shape)} {src.dtype}, "

@@ -1,1 +1,1 @@
-"""Command-line drivers (the port of `repro.launch`): `bfs_run`."""
+"""Command-line drivers (the port of `repro.launch`): `bfs_run`, `train`."""

@@ -16,15 +16,16 @@ def embedding_bag(table, indices, offsets=None, *, weights=None, mode="sum"):
     """table: (V, d); either
          indices (B, L) fixed-size bags (padded with -1), or
          flat indices (NNZ,) + offsets (B+1,) CSR-style ragged bags.
-    Returns (B, d)."""
+    Returns (B, d); a fixed bag's sum keeps its rows' dtype (an int32
+    table sums in int32, as in JAX), a mean divides into float32."""
     V = table.shape[0]
     if offsets is None:
         valid = indices >= 0
         emb = table[indices.long().clamp(0, V - 1)]
         if weights is not None:
             emb = emb * weights[..., None]
-        emb = torch.where(valid[..., None], emb, 0.0)
-        out = emb.sum(dim=1)
+        emb = torch.where(valid[..., None], emb, 0)
+        out = emb.sum(dim=1, dtype=emb.dtype)
         if mode == "mean":
             out = out / torch.clamp(valid.sum(dim=1), min=1)[:, None]
         return out

@@ -38,6 +38,14 @@ def _lowest(dtype) -> float:
     return -float("inf") if dtype.is_floating_point else torch.iinfo(dtype).min
 
 
+def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """`x.astype(dtype)` with XLA's saturating float -> integer
+    conversion at -inf (the dtype's lowest value)."""
+    if x.dtype.is_floating_point and not dtype.is_floating_point:
+        x = torch.where(x == -float("inf"), torch.iinfo(dtype).min, x)
+    return x.to(dtype)
+
+
 def _scatter_add(values, idx, n: int) -> torch.Tensor:
     out = values.new_zeros((n + 1,) + tuple(values.shape[1:]))
     return out.index_add(0, idx, values)[:n]
@@ -109,22 +117,29 @@ def degree_norm(edge_dst, edge_src, n: int, valid=None):
 
 def gather_scatter(h, edge_src, edge_dst, n: int, *, reduce="sum",
                    edge_weight=None, valid=None):
-    """y[i] = reduce_j over edges (j -> i) of w_e * h[j]."""
+    """y[i] = reduce_j over edges (j -> i) of w_e * h[j].
+
+    The result is in h's dtype, as JAX's `jnp.zeros((n,) + ..., h.dtype)`
+    buffers are: JAX scatters weighted messages in their promoted dtype
+    and casts the result back (an integer sum of weighted messages
+    truncates once, after the sum), an empty row of "max" holds the
+    dtype's lowest value (INT32_MIN for int32, 0 for floats), and "mean"
+    divides two integer sums into float32 as `/` does."""
     msg = h[edge_src.long().clamp(0, n - 1)]
     if edge_weight is not None:
         msg = msg * edge_weight[:, None]
     if valid is not None:
         msg = torch.where(_trail(valid, msg), msg,
-                          0.0 if reduce != "max" else -float("inf"))
+                          0 if reduce != "max" else _lowest(msg.dtype))
     dst = torch.where(valid, edge_dst.long(), n) if valid is not None \
         else edge_dst
     if reduce == "sum":
-        return at_add(n, dst, msg)
+        return _cast(at_add(n, dst, msg), h.dtype)
     if reduce == "mean":
-        s = at_add(n, dst, msg)
+        s = _cast(at_add(n, dst, msg), h.dtype)
         c = at_add(n, dst, h.new_ones(dst.shape))
         return s / torch.clamp(c, min=1)[:, None]
     if reduce == "max":
-        out = at_max(n, dst, msg)
-        return torch.where(torch.isfinite(out), out, 0.0)
+        out = _cast(at_max(n, dst, msg), h.dtype)
+        return torch.where(torch.isfinite(out), out, 0)
     raise ValueError(reduce)

@@ -76,10 +76,20 @@ xi under "{RxC}_spmm_yi", `spmm2d_device` under `shard_map` with the
 `partition_edge_vals` weights on x under "{RxC}_spmm_yw", and the gradient
 of sum(make_spmm2d(x) * gy) with respect to x under "{RxC}_spmm_gx".
 
+With --moe (EDGES.npz then holds an MoE layer instead of a graph: `x`
+(N, d) tokens, `router` (d, E), `w1`, `w3` (E, d, f), `w2` (E, f, d), `gy`
+(N, d) an output gradient, and `top_k`, `n_experts`, `capacity_factor`,
+`cap_e_mult`) it runs, on the first grid as a ("data", "model") mesh,
+`repro.models.moe.moe_apply` under `shard_map` with tokens over both axes
+and experts over "model", for each (quant_dispatch, fsdp_axis) of
+MOE_CASES, under jax.jit: the output under "moe_{q}_{fsdp}_y", the aux
+under "moe_{q}_{fsdp}_aux" and the gradients of sum(y * gy) + aux with
+respect to x, router, w1, w3 and w2 under "moe_{q}_{fsdp}_g{name}".
+
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
 [--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills]
-[--multihost [--cover | --traced]] [--shims] [--spmm] (GRID = RxC).  EDGES.npz holds
-`edges` (2, E), `roots` (B,) and `n`.
+[--multihost [--cover | --traced]] [--shims] [--spmm] [--moe] (GRID =
+RxC).  EDGES.npz holds `edges` (2, E), `roots` (B,) and `n`.
 """
 import dataclasses
 import os
@@ -91,8 +101,10 @@ EXCHANGE = OPTS[OPTS.index("--exchange") + 1] if "--exchange" in OPTS \
 FT_DIR = OPTS[OPTS.index("--ft") + 1] if "--ft" in OPTS else None
 FLAGS = ("--direction", "--algos", "--telemetry", "--exchange", EXCHANGE,
          "--ft", FT_DIR, "--drills", "--multihost", "--cover", "--traced",
-         "--shims", "--spmm")
+         "--shims", "--spmm", "--moe")
 SHIMS = "--shims" in OPTS
+MOE = "--moe" in OPTS
+MOE_CASES = [(False, None), (True, None), (False, "data"), (True, "data")]
 SPMM = "--spmm" in OPTS
 MULTIHOST = "--multihost" in OPTS
 MULTIHOST_CONFIGS = [(False, "list"), (True, "bitmap"), (True, "delta")] \
@@ -357,6 +369,44 @@ def put_spmm(out, grid):
                                            jnp.asarray(data["x"]), w))
 
 
+def put_moe(out, grid):
+    """The --moe outputs (see the module docstring)."""
+    import jax.numpy as jnp
+
+    from repro.models.moe import MoEShard, moe_apply
+
+    class Cfg:
+        top_k = int(data["top_k"])
+        n_experts = int(data["n_experts"])
+        capacity_factor = float(data["capacity_factor"])
+        cap_e_mult = int(data["cap_e_mult"])
+
+    R, C = grid
+    mesh = make_mesh((R, C), ("data", "model"), devices=jax.devices()[:R * C])
+    names = ("x", "router", "w1", "w3", "w2")
+    args = tuple(jnp.asarray(data[k]) for k in names)
+    gy = jnp.asarray(data["gy"])
+    for quant, fsdp in MOE_CASES:
+        shard = MoEShard(mesh=mesh, token_axes=("data", "model"),
+                         expert_axis="model", fsdp_axis=fsdp,
+                         quant_dispatch=quant)
+
+        def run(x, router, w1, w3, w2):
+            return moe_apply(x, {"router": router, "w1": w1, "w3": w3,
+                                 "w2": w2}, Cfg, mesh=shard)
+
+        def objective(*a):
+            y, aux = run(*a)
+            return jnp.sum(y * gy) + aux
+
+        y, aux = jax.jit(run)(*args)
+        grads = jax.jit(jax.grad(objective, argnums=tuple(range(5))))(*args)
+        tag = f"moe_{int(quant)}_{fsdp}"
+        out[f"{tag}_y"], out[f"{tag}_aux"] = np.asarray(y), np.asarray(aux)
+        for k, g in zip(names, grads):
+            out[f"{tag}_g{k}"] = np.asarray(g)
+
+
 def put_grid(out, grid):
     """The parity outputs of one grid (the modes before --ft)."""
     R, C = grid
@@ -379,8 +429,13 @@ def put_grid(out, grid):
 
 
 data = np.load(sys.argv[1])
-edges, roots, n = data["edges"], data["roots"], int(data["n"])
 out = {}
+if MOE:
+    put_moe(out, GRIDS[0])
+    np.savez(sys.argv[2], **out)
+    print("OK")
+    sys.exit(0)
+edges, roots, n = data["edges"], data["roots"], int(data["n"])
 if DRILLS:
     put_drills(out, GRIDS[0], data["weights"])
 elif MULTIHOST:

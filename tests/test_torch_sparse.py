@@ -4,6 +4,9 @@ package's (`repro.sparse`), on the CPU:
   * `segment_sum`, `segment_mean`, `segment_max`, `degree_norm` and
     `gather_scatter` (every `reduce`, with and without weights and a valid
     mask), on ids with empty segments, out-of-range and negative ids;
+  * int32 features (C6): `gather_scatter` (sum, weighted, masked, max
+    with INT32_MIN empty rows, mean) and fixed-bag `embedding_bag` keep
+    JAX's dtypes and values exactly;
   * `embedding_bag` in both layouts (fixed bags padded with -1, flat ids
     with CSR offsets, an empty bag), with and without per-sample weights,
     "sum" and "mean";
@@ -115,6 +118,53 @@ def test_gather_scatter_equals_jax(seg_data, reduce, weighted, masked):
                               valid=None if valid is None
                               else jnp.asarray(valid))
     _close(got, want, exact and reduce != "mean")
+
+
+# C6: an int32 `h` keeps its dtype through gather_scatter as in JAX
+C6_H = np.arange(12, dtype=np.int32).reshape(4, 3)
+C6_SRC = np.array([0, 1, 2, 3], np.int32)
+C6_DST = np.array([0, 0, 1, 1], np.int32)        # rows 2 and 3 empty
+C6_MASK = np.array([True, False, True, True])
+C6_W = np.array([0.5, 1.5, 2.5, 0.25], np.float32)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_scatter_int32_keeps_jax_dtype(reduce, weighted, masked):
+    """Sums and maxima stay int32 (weighted messages add in float32 and
+    the sum truncates once: row 1's 17.5 + 2.5 is 20), an empty row of
+    "max" is INT32_MIN, "mean" is float32: dtype and value equal to
+    JAX's, exactly."""
+    kw = dict(edge_weight=C6_W if weighted else None,
+              valid=C6_MASK if masked else None)
+    got = gather_scatter(_t(C6_H), _t(C6_SRC), _t(C6_DST), 4, reduce=reduce,
+                         **{k: None if v is None else _t(v)
+                            for k, v in kw.items()})
+    want = jax_gather_scatter(jnp.asarray(C6_H), jnp.asarray(C6_SRC),
+                              jnp.asarray(C6_DST), 4, reduce=reduce,
+                              **{k: None if v is None else jnp.asarray(v)
+                                 for k, v in kw.items()})
+    _close(got, want, True)
+    assert str(want.dtype) == ("float32" if reduce == "mean" else "int32")
+    if reduce == "max":
+        assert (got[2:] == np.iinfo(np.int32).min).all()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_int32_table_keeps_jax_dtype(mode, weighted):
+    """A fixed-bag sum of an int32 table is int32 (padding and an empty
+    bag add 0 of that dtype); weights or "mean" give float32, as in JAX."""
+    table = np.arange(15, dtype=np.int32).reshape(5, 3)
+    idx = np.array([[0, 1, -1], [2, 4, 3], [-1, -1, -1]], np.int32)
+    w = np.full((3, 3), 0.5, np.float32) if weighted else None
+    got = embedding_bag(_t(table), _t(idx), mode=mode,
+                        weights=None if w is None else _t(w))
+    want = jax_embedding_bag(jnp.asarray(table), jnp.asarray(idx),
+                             mode=mode,
+                             weights=None if w is None else jnp.asarray(w))
+    _close(got, want, True)
 
 
 def test_gather_scatter_unknown_reduce_raises():

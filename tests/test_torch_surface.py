@@ -16,8 +16,8 @@ cache tests):
   * every name of the JAX packages' `__all__` / import lists resolves on
     the port, except those a later ROADMAP item brings and those with no
     counterpart in the port (each listed here with its reason); for the
-    graph-learning and recsys modules every module-level name of each JAX
-    module has a counterpart in the port's module or model class.
+    graph-learning, recsys and LM modules every module-level name of each
+    JAX module has a counterpart in the port's module or model class.
 
 Inputs: `repro.graphgen.rmat_edges(jax.random.key(0), 8, 8)` as numpy,
 uint8 weights `(|31 u + v| mod 255) + 1`, roots from
@@ -45,40 +45,50 @@ N = 1 << SCALE
 GRIDS = [(1, 1), (2, 2)]
 # JAX names whose port comes with a later ROADMAP item
 WAITING = {"repro.configs": {
-    "ARCHS": "configs/registry.py, ROADMAP A16 part 2",
-    "get_arch": "configs/registry.py, ROADMAP A16 part 2",
+    "ARCHS": "configs/registry.py, ROADMAP A16 part 3",
+    "get_arch": "configs/registry.py, ROADMAP A16 part 3",
     "DryrunSpec": "the port's dry run (launch/dryrun.py), ROADMAP A16 "
-                  "part 2"}}
+                  "part 3"}}
 # JAX names with no counterpart in the port, and why
 JAX_ONLY = {"repro.dist": {
     "shard_map": "the port runs no shard_map program: the stacked grid's "
                  "collectives are tensor operations, a process group's "
                  "torch.distributed calls",
     "axis_types_kwargs": "torch meshes have no axis types"}}
-# the graph-learning and recsys modules: each JAX module-level function,
+# the graph-learning, recsys and LM modules: each JAX module-level function,
 # class and constant has a counterpart of the same name in the port's
 # module, or is a method of the module's nn.Module (under METHODS' name),
 # or is listed here
 MODULE_CLASSES = {"models.gnn.graphsage": "GraphSAGE",
                   "models.gnn.equivariant": "EquivariantNet",
                   "models.gnn.egnn": "EGNN",
-                  "models.recsys.deepfm": "DeepFM"}
+                  "models.recsys.deepfm": "DeepFM",
+                  "models.lm": "LM"}
 METHODS = {"apply": "forward", "loss_fn": "loss"}
-_NEXT = "the port's dry run, ROADMAP A16 part 2"
+_NEXT = "the port's dry run, ROADMAP A16 part 3"
 MODULE_WAITING = {
     "configs.common": {"DryrunSpec": _NEXT, "abstract": _NEXT},
     "configs.gnn_common": {"build_sage_dryrun": _NEXT,
                            "build_equiv_dryrun": _NEXT,
                            "build_egnn_dryrun": _NEXT},
     "configs.recsys_common": {"build_deepfm_dryrun": _NEXT},
-    "configs.bfs_rmat": {"build_bfs_dryrun": _NEXT}}
+    "configs.bfs_rmat": {"build_bfs_dryrun": _NEXT},
+    "configs.lm_common": {"build_lm_dryrun": _NEXT}}
 MODULE_JAX_ONLY = {
     "models.recsys.deepfm": {
         "param_shardings": "PartitionSpecs of the table over a device mesh; "
                            "the port holds the table on one card"},
     "models.gnn.e3": {
         "I3": "a module-level identity array; the port builds it on the "
-              "features' device and dtype (`e3._eye`)"}}
+              "features' device and dtype (`e3._eye`)"},
+    "models.lm": {
+        "param_shardings": "PartitionSpecs of the weights over a device "
+                           "mesh (Megatron TP, EP); the port holds the "
+                           "weights on one card"},
+    "train.train_step": {
+        "state_shardings": "PartitionSpecs of the ZeRO-1 optimizer state "
+                           "over a device mesh; the port holds the state "
+                           "on one card"}}
 PORTED_MODULES = (
     "sparse.segment", "sparse.embedding_bag", "sparse.sampler",
     "core.spmm2d", "optim.adamw", "optim.grad_compress",
@@ -86,9 +96,14 @@ PORTED_MODULES = (
     "models.gnn.egnn", "models.recsys.deepfm", "configs.common",
     "configs.gnn_common", "configs.recsys_common", "configs.bfs_rmat",
     "configs.graphsage_reddit", "configs.nequip", "configs.mace",
-    "configs.egnn", "configs.deepfm")
+    "configs.egnn", "configs.deepfm", "models.lm", "models.moe",
+    "configs.lm_common", "configs.gemma2_2b", "configs.glm4_9b",
+    "configs.h2o_danube_1_8b", "configs.kimi_k2_1t_a32b",
+    "configs.qwen2_moe_a2_7b", "train.train_step", "train.serve_step",
+    "data.pipeline", "launch.train")
 PACKAGES = ("algos", "api", "core", "ckpt", "serve", "obs", "runtime",
-            "scenarios", "graphgen", "dist", "sparse", "optim", "configs")
+            "scenarios", "graphgen", "dist", "sparse", "optim", "configs",
+            "train", "data")
 
 
 @pytest.fixture(autouse=True, scope="module")
