@@ -2,10 +2,11 @@
 """Drive the PyTorch port's two session paths, its kernel-stage surface,
 its fault-tolerant level loop, its serving layer, its process-group
 topology, its launcher, its graph build and single-device BFS, its
-graph-learning and recsys models and its LMs once on one NVIDIA GPU and
-check them.
+graph-learning and recsys models, its LMs, its architecture registry, its
+dry run and its expert-parallel MoE across a process group once on one
+NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--scale 26] [--roots 12] [--td-roots 11]
+    python3 chip_smoke.py [--scale 26] [--roots 8] [--td-roots 11]
                           [--batch 4] [--dir-batch 4] [--sssp-roots 2]
                           [--delta-scale 22] [--seed 1]
 
@@ -224,7 +225,9 @@ Phases, one line or more each on stdout:
                the butterfly exchange: top-down `bfs` of phase 4's first
                root and, under flat, `bfs(roots[:2])` (the second root
                alone in a flat warm-up), `connected_components()`,
-               `sssp` of phase 9's first root and the direction-optimised
+               under flat `sssp` of phase 9's first root (under the
+               butterfly too until phase 21 came: its CC is the value
+               fold under the butterfly) and the direction-optimised
                (bitmap) `bfs` of phase 7's first root -- every output field
                on every rank equal to the stacked session's.  The NCCL leg:
                one rank holding the whole 2x2 grid, top-down `bfs` and CC
@@ -296,7 +299,7 @@ Phases, one line or more each on stdout:
                calls), serve_bulk and retrieval_cand.  Every check fails
                the phase; no kernel of csrc/ runs in it (JAX computes
                these models outside Pallas);
-  20. lm       after 19, last, in a child process on the freed card
+  20. lm       after 19, in a child process on the freed card
                (`scripts/torch_lm_card.py`): (a) h2o-danube-1.8b at full
                width, 64 greedy steps at decode_32k's batch 128 over the
                4096-slot ring buffer, 16 long_500k steps at batch 1 from
@@ -313,6 +316,24 @@ Phases, one line or more each on stdout:
                the five configs on the card.  Every check fails the phase;
                no kernel of csrc/ runs in it (JAX computes the LM, the MoE
                layer and the train step outside Pallas);
+  21. dryrun   after 20, last, in a child process on the freed card
+               (`scripts/torch_dryrun_card.py`), three legs side by side:
+               (a) every architecture's smoke of the registry on the card
+               (the bfs-rmat smoke searches through the kernel path; the
+               child's launches are not the main path's); (b) one dry-run
+               cell per family through `python -m
+               repro_torch.launch.dryrun` on the 16x16 mesh, each a
+               process with CUDA hidden (gemma2-2b train_4k,
+               qwen2-moe-a2.7b decode_32k, graphsage-reddit ogb_products,
+               deepfm train_batch, bfs-rmat rmat_weak), each record's
+               roofline terms and per-device argument GiB printed -- counts
+               of shapes times the H100's datasheet rates, not
+               measurements; (c) one qwen2-moe-a2.7b MoE layer at full
+               width (64 experts, 60 routed, top-4, bf16, 4096 tokens)
+               expert-parallel over 2 gloo ranks sharing the card,
+               forward and backward equal to the stacked path's within
+               2e-2 of each tensor's largest entry.  Every check fails the
+               phase;
   6. report    every phase's peak memory, the {"kernels": [...]} line,
                the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
@@ -341,9 +362,9 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, published peak
 TD_EQUAL_ROOTS = 8               # direction roots held to the top-down path
-# phases 14 and 15 (a): roots a program runs on (4 until phase 20 came;
-# cut to 2 for its time)
-PHASE14_15_ROOTS = 2
+# phases 14 and 15 (a): roots a program runs on (4 until phase 20 came,
+# 2 until phase 21; cut for their time)
+PHASE14_15_ROOTS = 1
 I32_MAX = 2**31 - 1
 BU_BLOCK_LANES = 1024            # stage::kLanes * kThreads, csrc/bottomup.cu
 WALK_SLOTS_PER_LANE = 64         # stage::kWalkSlotsPerLane, csrc/stages.cuh
@@ -2986,10 +3007,12 @@ def group_rank_main(args) -> int:
                        ("edges_scanned", np.asarray(ints["cc_edges"]))])
         if leg != "gloo":
             continue
-        run("sssp", ex, lambda: s.sssp(ints["sssp_root"]),
-            lambda o: [("dist", ref("sssp_dist")),
-                       ("n_iters", np.asarray(ints["sssp_iters"])),
-                       ("edges_scanned", np.asarray(ints["sssp_edges"]))])
+        if ex == "flat":      # cut for phase 21's time (see the docstring)
+            run("sssp", ex, lambda: s.sssp(ints["sssp_root"]),
+                lambda o: [("dist", ref("sssp_dist")),
+                           ("n_iters", np.asarray(ints["sssp_iters"])),
+                           ("edges_scanned",
+                            np.asarray(ints["sssp_edges"]))])
         t0 = time.perf_counter()
         ds = graph.session(dataclasses.replace(
             cfg, direction=True, fold_codec="bitmap"))
@@ -3205,6 +3228,7 @@ def run_launch(torch, args, report, phases):
 
 MODELS_TIMEOUT_S = 300           # phase 19: the child's deadline
 LM_TIMEOUT_S = 300               # phase 20: the child's deadline
+DRYRUN_TIMEOUT_S = 300           # phase 21: the child's deadline
 
 
 def run_card_script(torch, args, phase: int, script: str,
@@ -3245,12 +3269,21 @@ def run_lm(torch, args, report, phases):
     phases.end("20 lm")
 
 
+def run_dryrun(torch, args, report, phases):
+    """Phase 21: `scripts/torch_dryrun_card.py` in a child process (see the
+    module docstring)."""
+    report["dryrun"] = run_card_script(torch, args, 21,
+                                       "torch_dryrun_card.py",
+                                       DRYRUN_TIMEOUT_S)
+    phases.end("21 dryrun")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=26)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--roots", type=int, default=12,
+    ap.add_argument("--roots", type=int, default=TD_EQUAL_ROOTS,
                     help="timed roots of the direction-optimised path")
     ap.add_argument("--td-roots", type=int, default=11,
                     help="timed roots of the top-down path")
@@ -3924,6 +3957,7 @@ def main() -> int:
     run_launch(torch, args, report, phases)
     run_models(torch, args, report, phases)
     run_lm(torch, args, report, phases)
+    run_dryrun(torch, args, report, phases)
     report["kernels"] = kernels
     report["phase_s"] = phases.seconds
     report["script_s"] = time.perf_counter() - t_script

@@ -1,4 +1,4 @@
-"""Architecture configs and their smokes (the port of `repro.configs`).
-The JAX package's `ARCHS`, `get_arch` (`configs/registry.py`) and
-`DryrunSpec` come with the next slice (ROADMAP A16 part 3)."""
-from repro_torch.configs.common import MeshAxes
+"""Architecture configs, their smokes and dry-run specs (the port of
+`repro.configs`)."""
+from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.configs.common import MeshAxes, DryrunSpec

@@ -28,6 +28,10 @@ surface:
                     rank waits in a collective its peers never reach.
   broadcast_tree()  a rank's output (dataclasses, tuples, tensors) to every
                     rank of a group.
+  axis_all_to_all() / axis_all_gather()
+                    JAX's all_to_all / all_gather over one named mesh axis
+                    for every processor of the rank's block (the
+                    expert-parallel MoE's dispatch and FSDP gather).
 
 The wire: every tensor crosses the group as a uint8 view of its contiguous
 bytes and is viewed back to its dtype on arrival -- bit-exact for every
@@ -35,7 +39,8 @@ dtype, and gloo refuses uint16, uint32 and int16 tensors but takes uint8.
 Under gloo a CUDA tensor is staged through a host copy explicitly (nothing
 relies on gloo's CUDA support); under NCCL device tensors go to the
 collective as they are.  The reductions (`all_reduce_i64`) travel as int64,
-which both backends take; `all_reduce_max_u8` merges uint8 marks.
+which both backends take; `all_reduce_max_u8` merges uint8 marks and
+`all_reduce_sum` sums floats in float32.
 
 A mesh's collectives run in its own process group (`ProcessMesh.group`,
 the world for `global_mesh()` without `processes=`), and its row and column
@@ -328,6 +333,63 @@ def all_reduce_max_u8(x: torch.Tensor, group=None) -> torch.Tensor:
     """The elementwise maximum of a uint8 (or bool, as uint8) tensor over
     the group, on x's device."""
     return _reduce(x.to(torch.uint8), "max", group).to(x.device)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise sum of a float tensor over the group, accumulated in
+    float32 and returned in x's dtype on x's device (every member gets the
+    same bits)."""
+    return _reduce(x.to(torch.float32), "sum", group).to(x.device, x.dtype)
+
+
+def _line(mesh: ProcessMesh, axis: int) -> tuple:
+    """The group of the ranks on this rank's line along mesh dim `axis`
+    (the other dim fixed) and its member count."""
+    bi, bj = mesh.block_of(mesh.rank)
+    if axis == 1:
+        return mesh.groups.rows[bi], mesh.block_grid[1]
+    return mesh.groups.cols[bj], mesh.block_grid[0]
+
+
+def axis_all_to_all(x: torch.Tensor, mesh: ProcessMesh,
+                    axis: int) -> torch.Tensor:
+    """JAX's `all_to_all(x, axis_name, 0, 0)` over mesh dim `axis` for
+    every processor of this rank's block: x (Rl, Cl, P, ...), x[li, lj, p]
+    processor (i, j)'s payload for the processor at coordinate p along
+    `axis` (P its size) -> recv (Rl, Cl, P, ...), recv[li, lj, p] what
+    that processor sent to (i, j).  One all_to_all in the line's group."""
+    Rl, Cl = x.shape[:2]
+    tail = tuple(x.shape[3:])
+    rest = tuple(range(4, 4 + len(tail)))
+    group, k = _line(mesh, axis)
+    if axis == 1:
+        send = x.reshape((Rl, Cl, k, Cl) + tail).movedim(2, 0)
+        recv = all_to_all(send, group, k)
+        # recv[m, li, ls, lj]: member m's x[li, ls, my column lj]
+        out = recv.permute((1, 3, 0, 2) + rest)
+    else:
+        send = x.reshape((Rl, Cl, k, Rl) + tail).movedim(2, 0)
+        recv = all_to_all(send, group, k)
+        # recv[m, ls, lj, li]: member m's x[ls, lj, my row li]
+        out = recv.permute((3, 2, 0, 1) + rest)
+    return out.reshape((Rl, Cl, mesh.shape[axis]) + tail)
+
+
+def axis_all_gather(x: torch.Tensor, mesh: ProcessMesh,
+                    axis: int) -> torch.Tensor:
+    """JAX's `all_gather(x, axis_name)` over mesh dim `axis` for every
+    processor of this rank's block: x (Rl, Cl, ...) -> (Rl, Cl, P, ...),
+    out[li, lj, p] the x of the processor at coordinate p along `axis` on
+    (i, j)'s line.  One all_gather in the line's group."""
+    Rl, Cl = x.shape[:2]
+    tail = tuple(x.shape[2:])
+    group, k = _line(mesh, axis)
+    g = all_gather(x, group, k)                       # (k, Rl, Cl, ...)
+    if axis == 1:
+        line = g.transpose(0, 1).reshape((Rl, k * Cl) + tail)
+        return line.unsqueeze(1).expand((Rl, Cl, k * Cl) + tail)
+    line = g.reshape((k * Rl, Cl) + tail).transpose(0, 1)
+    return line.unsqueeze(0).expand((Rl, Cl, k * Rl) + tail)
 
 
 def fetch(x, mesh: ProcessMesh | None = None):

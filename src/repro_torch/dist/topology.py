@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.types import Grid2D
 from repro_torch.dist import multihost as MH
+from repro_torch.dist import wire
 from repro_torch.dist.strategy import ExchangeStrategy, FlatExchange
 
 
@@ -102,6 +103,7 @@ class StackedTopology:
         broadcast view (every grid row of a column receives the same
         gather)."""
         R = self.grid.R
+        x = wire.mark(x, "all-gather", R * x.nbytes, R)
         return x.transpose(0, 1).unsqueeze(0).expand((R,) + x.transpose(
             0, 1).shape)
 
@@ -110,6 +112,7 @@ class StackedTopology:
         column d -> recv[i, j, m] = x[i, m, j] (what column m sent to j),
         routed by the bound exchange strategy (on the stacked grid every
         strategy routes by flat's copy)."""
+        x = wire.mark(x, "all-to-all", x.nbytes, self.grid.C)
         return self.exchange.all_to_all(x)
 
     def with_exchange(self, strategy) -> "StackedTopology":
@@ -119,6 +122,7 @@ class StackedTopology:
 
     def psum_all(self, x):
         """Sum of a per-processor (R, C) quantity over the grid."""
+        x = wire.mark(x, "all-reduce", x.nbytes, self.grid.P)
         return x.sum(dim=(0, 1), dtype=x.dtype)
 
     def total(self, value: int) -> int:
@@ -177,19 +181,10 @@ class GroupTopology:
     def row_group(self):
         return self.groups.rows[self.mesh.block_of(self.mesh.rank)[0]]
 
-    @property
-    def col_group(self):
-        return self.groups.cols[self.mesh.block_of(self.mesh.rank)[1]]
-
     def row_gather(self, x):
         """(Rl, Cl, ...) -> (Rl, Cl, R, ...): out[li, lj, r] = x[r, j], an
         all_gather of the blocks within the column group."""
-        m = self.mesh
-        nbr = m.block_grid[0]
-        g = MH.all_gather(x, self.col_group, nbr)    # (nbr, Rl, Cl, ...)
-        full = g.reshape((nbr * m.Rl,) + tuple(x.shape[1:]))   # (R, Cl, ...)
-        t = full.transpose(0, 1)
-        return t.unsqueeze(0).expand((m.Rl,) + tuple(t.shape))
+        return MH.axis_all_gather(x, self.mesh, 0)
 
     def col_all_to_all(self, x):
         """(Rl, Cl, C, ...) -> recv[li, lj, m] = x[i, m, j], routed by the
@@ -199,15 +194,7 @@ class GroupTopology:
     def flat_all_to_all(self, x):
         """One all_to_all within the row group: member k (columns
         k*Cl .. k*Cl + Cl - 1) receives x[:, :, k*Cl:(k+1)*Cl]."""
-        m = self.mesh
-        nbc = m.block_grid[1]
-        Rl, Cl = x.shape[:2]
-        tail = tuple(x.shape[3:])
-        send = x.reshape((Rl, Cl, nbc, Cl) + tail).movedim(2, 0)
-        recv = MH.all_to_all(send, self.row_group, nbc)
-        # recv[k, li, ls, lj] = member k's x[li, ls, j] -> [li, lj, k, ls]
-        return recv.permute((1, 3, 0, 2) + tuple(range(4, recv.dim()))) \
-            .reshape((Rl, Cl, nbc * Cl) + tail)
+        return MH.axis_all_to_all(x, self.mesh, 1)
 
     def butterfly_swap(self, part, s: int):
         """One butterfly stage: (Rl, Cl, ...) rows of every column j ->

@@ -1,1 +1,2 @@
-"""Command-line drivers (the port of `repro.launch`): `bfs_run`, `train`."""
+"""Command-line entry points (the port of `repro.launch`): `bfs_run`,
+`train`, `dryrun` (with its `mesh` and `roofline`)."""

@@ -14,17 +14,27 @@ from repro_torch.core.types import resolve_device
 def init_generator(generator, device) -> tuple:
     """(device, generator): `device` resolved (None = CUDA, raising
     without a card); `generator` a torch.Generator on it (None: one seeded
-    with 0)."""
+    with 0).  On the meta device (the dry run's shapes without storage)
+    there is no generator and no draw: the generator is None."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return dev, None
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     return dev, generator
 
 
+def randn(shape, generator, device) -> torch.Tensor:
+    """N(0, 1) fp32 draws from `generator`; on the meta device only the
+    shape."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def normal(shape, scale, generator, device) -> nn.Parameter:
     """An fp32 parameter of N(0, 1) draws times `scale`."""
-    return nn.Parameter(torch.randn(shape, generator=generator,
-                                    device=device) * scale)
+    return nn.Parameter(randn(shape, generator, device) * scale)
 
 
 def dense(i: int, o: int, generator, device, scale=None) -> nn.Parameter:

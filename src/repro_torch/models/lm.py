@@ -19,8 +19,9 @@ their order: rmsnorm normalises in fp32, casts back, then scales;
 attention takes fp32 logits, a -1e30 fill and an fp32 softmax whose
 weights are cast to v's dtype (`scaled_dot_product_attention` is not used:
 it takes no softcap and rounds otherwise).  The JAX package's
-`param_shardings` (PartitionSpecs of a device mesh) has no counterpart:
-the port holds the weights on one card.
+`param_shardings` (PartitionSpecs of a device mesh) has no counterpart
+here: the port holds the weights on one card, and the dry run carries
+their splits (`configs.lm_common._param_splits`).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import init_generator
+from repro_torch.models.common import init_generator, randn
 from repro_torch.sparse.segment import take_rows
 
 
@@ -179,8 +180,7 @@ def _normal(gen, dev, dt, d, *shape):
         float(shape[-2] if len(shape) > 1 else d), dtype=torch.float32))
     out = torch.empty(shape, dtype=dt, device=dev)
     for part in (out if len(shape) > 2 else [out]):
-        part.copy_((torch.randn(part.shape, generator=gen, device=dev)
-                    * scale.to(dev)).to(dt))
+        part.copy_((randn(part.shape, gen, dev) * scale.to(dev)).to(dt))
     return out
 
 
@@ -339,14 +339,16 @@ class LM(nn.Module):
         B = tokens.shape[0]
         H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         x = self._embed(tokens[:, None])
+        W = cache["k"].shape[2]
         if isinstance(pos, torch.Tensor):
             positions = pos.to(x.device, torch.int32).reshape(1, 1).expand(
                 B, 1)
+            # a (1,) index: the write is an index_put, with no host read
+            slot = (positions[:1, 0] % W).long()
         else:     # a fill, not a blocking host-to-card copy a step
             positions = torch.full((B, 1), pos, dtype=torch.int32,
                                    device=x.device)
-        W = cache["k"].shape[2]
-        slot = pos % W
+            slot = slice(pos % W, pos % W + 1)
         scale = cfg.query_scale if cfg.query_scale else dh ** -0.5
         for l, ((ap, mp), window) in enumerate(zip(self._layers(),
                                                    cfg.windows)):
@@ -357,9 +359,9 @@ class LM(nn.Module):
             k = rope((h @ ap["wk"]).reshape(B, 1, KV, dh), positions,
                      cfg.rope_theta, cfg.rope_fraction)
             v = (h @ ap["wv"]).reshape(B, 1, KV, dh)
-            kc[:, slot] = k[:, 0]
-            vc[:, slot] = v[:, 0]
-            pc[:, slot] = positions[:, 0]
+            kc[:, slot] = k
+            vc[:, slot] = v
+            pc[:, slot] = positions
             o = attention(q, kc, vc, positions, pc, window=window,
                           softcap=cfg.attn_softcap, scale=scale,
                           k_valid=pc >= 0)

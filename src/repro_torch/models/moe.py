@@ -18,8 +18,20 @@ row-major order), and an all_to_all over the expert axis is a swap of that
 axis's mesh dim with the destination dim -- the stacked grid's
 `col_all_to_all` rule.  The FSDP all_gather of the expert weights is the
 identity there (a stacked device holds its experts whole), and the aux
-loss is the mean over the devices, as JAX's `pmean`.  Across a process
-group (`ProcessMesh`) the EP path is not ported yet (ROADMAP A21).
+loss is the mean over the devices, as JAX's `pmean`.
+
+Across a process group (a `multihost.ProcessMesh`) each rank runs that
+body for the processors of its block, and every all_to_all of the
+dispatch is one `axis_all_to_all` in the expert axis's sub-group (int8
+values and their scales under `quant_dispatch`); with `fsdp_axis` each
+processor holds its experts' d_model slice and `axis_all_gather`s them
+over that axis.  Every rank passes the whole x and the whole weights and
+gets the whole y and the group's mean aux, as `make_spmm2d` does.
+Gradients flow as under JAX's `shard_map`: an all_to_all's backward is
+the same all_to_all of the gradient (it is its own inverse), the FSDP
+gather's is a reduce-scatter (an all_to_all, then the sum), the
+replicated inputs' is a float32 all-reduce over the group, and the
+gathered y's takes the rank's own rows.
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.frontier import bucket_append
+from repro_torch.dist import multihost as MH
+from repro_torch.dist import wire
 from repro_torch.dist.compat import StackedMesh
 from repro_torch.sparse.segment import at_add
 
@@ -116,6 +130,7 @@ def _all_to_all(t, shape: tuple, axis: int):
     """JAX's `all_to_all(t, expert_axis, 0, 0)` on stacked devices: t (D,
     ep, ...) with dim 1 the destination along mesh dim `axis`; device c
     receives in row p what device c' (c'_axis = p) sent to c_axis."""
+    t = wire.mark(t, "all-to-all", t.nbytes, shape[axis])
     rest = t.shape[2:]
     m = len(shape)
     out = t.reshape(tuple(shape) + (shape[axis],) + rest).transpose(axis, m)
@@ -139,24 +154,24 @@ def _quantised(t):
     return q, sc
 
 
-def _exchange(t, shape, axis, quant: bool, dtype):
+def _exchange(t, a2a, quant: bool, dtype):
     """One all_to_all of the dispatch, int8-quantised when asked."""
     if not quant:
-        return _all_to_all(t, shape, axis)
+        return a2a(t)
     q, sc = _quantised(t)
-    q, sc = _all_to_all(q, shape, axis), _all_to_all(sc, shape, axis)
+    q, sc = a2a(q), a2a(sc)
     return q.to(dtype) * sc.to(dtype)
 
 
-def _moe_devices(x, router_w, w1, w3, w2, *, top_k: int, shape: tuple,
-                 axis: int, capacity_factor: float, cap_e_mult: int = 4,
+def _moe_devices(x, router_w, w1, w3, w2, *, top_k: int, ep: int, a2a,
+                 capacity_factor: float, cap_e_mult: int = 4,
                  n_real=None, quant_dispatch: bool = False):
     """Every device's `_moe_local` at once: x (D, N, d) per-device tokens,
-    D = prod(shape) devices in row-major order of the mesh `shape`,
-    experts sharded over mesh dim `axis`.  Returns ((D, N, d), (D,) aux)."""
+    w1 / w3 / w2 (D, E_loc, ...) each device's experts, ep the size of the
+    expert axis and a2a(t) the all_to_all over it of a (D, ep, ...)
+    tensor.  Returns ((D, N, d), (D,) aux)."""
     D, N, d = x.shape
-    ep = shape[axis]
-    E_loc = w1.shape[0] // ep
+    E_loc = w1.shape[1]
     topi, topv, aux = _route(x, router_w, top_k, n_real)
 
     copies = N * top_k
@@ -175,9 +190,9 @@ def _moe_devices(x, router_w, w1, w3, w2, *, top_k: int, shape: tuple,
     send_e = torch.where(s_valid, _rows(e_flat, dsafe) % E_loc, 0)
 
     if ep > 1:
-        recv_x = _exchange(send_x, shape, axis, quant_dispatch, x.dtype)
-        recv_e = _all_to_all(send_e, shape, axis)
-        recv_v = _all_to_all(s_valid, shape, axis)
+        recv_x = _exchange(send_x, a2a, quant_dispatch, x.dtype)
+        recv_e = a2a(send_e)
+        recv_v = a2a(s_valid)
     else:
         recv_x, recv_e, recv_v = send_x, send_e, s_valid
 
@@ -191,16 +206,14 @@ def _moe_devices(x, router_w, w1, w3, w2, *, top_k: int, shape: tuple,
     buf = torch.where(g_valid[..., None],
                       _rows(recv_x.reshape(D, flat, d), gsafe), 0)
 
-    y = _grouped_ffn(buf, g_valid, _per_device(w1, shape, axis),
-                     _per_device(w3, shape, axis),
-                     _per_device(w2, shape, axis))
+    y = _grouped_ffn(buf, g_valid, w1, w3, w2)
 
     dev = torch.arange(D, device=x.device).reshape(D, 1, 1)
     slot = torch.where(g_valid, gidx.long() + dev * flat, D * flat)
     y_recv = at_add(D * flat, slot.reshape(-1),
                     y.reshape(-1, d)).to(x.dtype).reshape(D, ep, cap_s, d)
 
-    y_send = _exchange(y_recv, shape, axis, quant_dispatch, x.dtype) \
+    y_send = _exchange(y_recv, a2a, quant_dispatch, x.dtype) \
         if ep > 1 else y_recv
 
     contrib = torch.where(s_valid[..., None],
@@ -214,9 +227,10 @@ def _moe_local(x, router_w, w1, w3, w2, *, top_k: int,
                capacity_factor: float, cap_e_mult: int = 4, n_real=None):
     """Device-local body at EP = 1 (the reference path): x (N, d) ->
     ((N, d), aux).  JAX's body also runs at ep > 1 under `shard_map`; here
-    `moe_apply` runs that on every device of a `StackedMesh` at once."""
-    y, aux = _moe_devices(x[None], router_w, w1, w3, w2, top_k=top_k,
-                          shape=(1,), axis=0,
+    `moe_apply` runs that on every device of a `StackedMesh` at once, or
+    on every processor of a rank's block of a `ProcessMesh`."""
+    y, aux = _moe_devices(x[None], router_w, w1[None], w3[None], w2[None],
+                          top_k=top_k, ep=1, a2a=None,
                           capacity_factor=capacity_factor,
                           cap_e_mult=cap_e_mult, n_real=n_real)
     return y[0], aux[0]
@@ -240,34 +254,171 @@ def _token_layout(mesh: MoEShard):
     return shape, names.index(mesh.expert_axis), n_shards, shard, first
 
 
+class _AxisAllToAll(torch.autograd.Function):
+    """`axis_all_to_all` of a float tensor; the gradient goes back through
+    the same all_to_all (a permutation that is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, t, pm, axis):
+        ctx.pm, ctx.axis = pm, axis
+        return MH.axis_all_to_all(t, pm, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return MH.axis_all_to_all(g.contiguous(), ctx.pm, ctx.axis), None, \
+            None
+
+
+class _AxisAllGather(torch.autograd.Function):
+    """`axis_all_gather`; its gradient is the reduce-scatter: each
+    gathered piece's gradient goes back to its owner (an all_to_all) and
+    the owner sums them."""
+
+    @staticmethod
+    def forward(ctx, t, pm, axis):
+        ctx.pm, ctx.axis = pm, axis
+        return MH.axis_all_gather(t, pm, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = MH.axis_all_to_all(g.contiguous(), ctx.pm, ctx.axis)
+        return back.sum(dim=2), None, None
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor every rank holds whole, entering the ranks' bodies: the
+    identity, whose gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return MH.all_reduce_sum(g.contiguous(), ctx.group), None
+
+
+class _Gathered(torch.autograd.Function):
+    """Every rank's (n, ...) rows stacked in rank order on every rank: the
+    ranks' bodies leaving for the whole result.  Every rank goes on with
+    the same whole result, so a rank's gradient is its own rows'."""
+
+    @staticmethod
+    def forward(ctx, t, pm):
+        ctx.rank, ctx.n = pm.rank, t.shape[0]
+        g = MH.all_gather(t.contiguous(), pm.group, pm.world)
+        return g.reshape((-1,) + tuple(t.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n], None
+
+
+def _enter(t, pm):
+    return _Replicated.apply(t, pm.group) if t.requires_grad else t
+
+
+def _group_weights(w, pm, names, axis: int, fsdp_axis, dim: int):
+    """(E, ...) expert weights -> (D_loc, E_loc, ...) for the processors of
+    the rank's block: each its expert coordinate's block of experts; with
+    `fsdp_axis` each holds the slice of dim `dim` (of a per-device (E_loc,
+    ...) weight) at its coordinate along that axis, all_gathered over
+    it."""
+    ep = pm.shape[axis]
+    E_loc = w.shape[0] // ep
+    coords = [(i, j) for i in range(pm.i0, pm.i0 + pm.Rl)
+              for j in range(pm.j0, pm.j0 + pm.Cl)]
+    if fsdp_axis is None:
+        return torch.stack([w[c[axis] * E_loc:(c[axis] + 1) * E_loc]
+                            for c in coords])
+    fa = names.index(fsdp_axis)
+    F = pm.shape[fa]
+    if w.shape[dim] % F:
+        raise ValueError(f"fsdp_axis {fsdp_axis!r} of size {F} does not "
+                         f"divide the experts' dim of {w.shape[dim]}")
+    piece = w.shape[dim] // F
+    own = torch.stack([w[c[axis] * E_loc:(c[axis] + 1) * E_loc].narrow(
+        dim, c[fa] * piece, piece) for c in coords])
+    own = own.reshape((pm.Rl, pm.Cl) + tuple(own.shape[1:]))
+    full = _AxisAllGather.apply(own, pm, fa)   # (Rl, Cl, F, E_loc, ...)
+    full = full.movedim(2, 2 + dim)
+    shape = list(w.shape)
+    shape[0] = E_loc
+    return full.reshape([pm.Rl * pm.Cl] + shape)
+
+
+def _moe_group(x, mp, cfg, mesh: MoEShard, cap_e_mult: int):
+    """`moe_apply`'s expert-parallel path over a `ProcessMesh`: this
+    rank's processors' bodies, the collectives across the group."""
+    pm = mesh.mesh
+    names = tuple(pm.axis_names)
+    if mesh.fsdp_axis == mesh.expert_axis:
+        raise ValueError("fsdp_axis and expert_axis must differ")
+    _, axis, n_shards, shard, first = _token_layout(mesh)
+    L = pm.Rl * pm.Cl
+    mine = shard[pm.rank * L:(pm.rank + 1) * L].to(x.device)
+    x = _enter(x, pm)
+    N, d = x.shape
+    pad = (-N) % n_shards
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, d))])
+    xs = x.reshape(n_shards, -1, d)[mine]
+    router = _enter(mp["router"], pm)
+    w1, w3, w2 = (_group_weights(_enter(mp[k], pm), pm, names, axis,
+                                 mesh.fsdp_axis, dim)
+                  for k, dim in (("w1", 1), ("w3", 1), ("w2", 2)))
+
+    def a2a(t):
+        blk = t.reshape((pm.Rl, pm.Cl) + tuple(t.shape[1:]))
+        out = _AxisAllToAll.apply(blk, pm, axis) if t.is_floating_point() \
+            else MH.axis_all_to_all(blk, pm, axis)
+        return out.reshape(t.shape)
+
+    y, aux = _moe_devices(xs, router, w1, w3, w2, top_k=cfg.top_k,
+                          ep=pm.shape[axis], a2a=a2a,
+                          capacity_factor=cfg.capacity_factor,
+                          cap_e_mult=cap_e_mult, n_real=cfg.n_experts,
+                          quant_dispatch=mesh.quant_dispatch)
+    y = _Gathered.apply(y, pm)
+    aux = _Gathered.apply(aux, pm)
+    return y[first.to(x.device)].reshape(-1, d)[:N], aux.mean()
+
+
 def moe_apply(x, mp, cfg, mesh: Optional[MoEShard] = None):
     """x: (N, d) global token activations.  Returns (y (N, d), aux scalar).
 
-    mp holds router/w1/w3/w2; mesh (MoEShard) over a `StackedMesh` selects
-    the EP path (tokens padded to a multiple of the token shards, every
-    shard with its own capacity, aux the devices' mean)."""
+    mp holds router/w1/w3/w2; mesh (MoEShard) over a `StackedMesh` or a
+    `multihost.ProcessMesh` selects the EP path (tokens padded to a
+    multiple of the token shards, every shard with its own capacity, aux
+    the devices' mean)."""
     cap_e_mult = getattr(cfg, "cap_e_mult", 4)
     if mesh is None or mesh.mesh is None or mesh.ep == 1:
         return _moe_local(x, mp["router"], mp["w1"], mp["w3"], mp["w2"],
                           top_k=cfg.top_k,
                           capacity_factor=cfg.capacity_factor,
                           cap_e_mult=cap_e_mult, n_real=cfg.n_experts)
-    if not isinstance(mesh.mesh, StackedMesh):
-        raise NotImplementedError(
-            "the expert-parallel MoE across a process group (ProcessMesh) "
-            "is not ported yet (ROADMAP A21); use a StackedMesh")
     if mesh.fsdp_axis is not None and \
             mesh.fsdp_axis not in mesh.mesh.axis_names:
         raise ValueError(f"fsdp_axis {mesh.fsdp_axis!r} is not an axis of "
                          f"the mesh {mesh.mesh.axis_names}")
+    if not isinstance(mesh.mesh, StackedMesh):
+        return _moe_group(x, mp, cfg, mesh, cap_e_mult)
     shape, axis, n_shards, shard, first = _token_layout(mesh)
     N, d = x.shape
     pad = (-N) % n_shards
     if pad:
         x = torch.cat([x, x.new_zeros((pad, d))])
     xs = x.reshape(n_shards, -1, d)[shard.to(x.device)]
-    y, aux = _moe_devices(xs, mp["router"], mp["w1"], mp["w3"], mp["w2"],
-                          top_k=cfg.top_k, shape=shape, axis=axis,
+    w1, w3, w2 = (_per_device(mp[k], shape, axis) for k in ("w1", "w3", "w2"))
+    if mesh.fsdp_axis is not None:     # the gather a real mesh would run
+        F = dict(zip(mesh.mesh.axis_names, shape))[mesh.fsdp_axis]
+        w1, w3, w2 = (wire.mark(w, "all-gather",
+                                w.numel() * w.element_size(), F)
+                      for w in (w1, w3, w2))
+    y, aux = _moe_devices(xs, mp["router"], w1, w3, w2, top_k=cfg.top_k,
+                          ep=shape[axis],
+                          a2a=lambda t: _all_to_all(t, shape, axis),
                           capacity_factor=cfg.capacity_factor,
                           cap_e_mult=cap_e_mult, n_real=cfg.n_experts,
                           quant_dispatch=mesh.quant_dispatch)

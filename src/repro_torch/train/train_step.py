@@ -13,7 +13,8 @@ tree of tensors (nested dicts and lists; for a module,
 gradient with respect to its leaves, and `adamw_update` writes the new
 values into them in place.  The JAX package's `state_shardings`
 (PartitionSpecs of the ZeRO-1 optimizer state) has no counterpart: the
-port holds the state on one card.
+port holds the state on one card (the dry run splits the moments as
+`configs.lm_common._zero_split` does).
 """
 from __future__ import annotations
 

@@ -85,6 +85,10 @@ and experts over "model", for each (quant_dispatch, fsdp_axis) of
 MOE_CASES, under jax.jit: the output under "moe_{q}_{fsdp}_y", the aux
 under "moe_{q}_{fsdp}_aux" and the gradients of sum(y * gy) + aux with
 respect to x, router, w1, w3 and w2 under "moe_{q}_{fsdp}_g{name}".
+When EDGES.npz also holds `batch`, each device's shard of
+`repro.data.shard_batch(batch, mesh, P(*spec))` for every SHARD_SPECS
+entry goes under "shard_{name}_{k}" (k the device's row-major index) and
+its first index along each dim under "shard_{name}_{k}_start".
 
 Usage: torch_parity_ref.py EDGES.npz OUT.npz GRID [GRID ...] [--direction]
 [--algos] [--exchange EX] [--telemetry] [--ft DIR] [--drills]
@@ -405,6 +409,31 @@ def put_moe(out, grid):
         out[f"{tag}_y"], out[f"{tag}_aux"] = np.asarray(y), np.asarray(aux)
         for k, g in zip(names, grads):
             out[f"{tag}_g{k}"] = np.asarray(g)
+    if "batch" in data.files:
+        put_shards(out, mesh, data["batch"])
+
+
+# --moe's shard_batch specs (name -> PartitionSpec entries)
+SHARD_SPECS = {"default": (("pod", "data"),), "data_model": (("data", "model"),),
+               "model_data": (("model", "data"),), "model": ("model",),
+               "rows_cols": ("data", "model")}
+
+
+def put_shards(out, mesh, batch):
+    """`repro.data.shard_batch`'s shard on every device of the mesh (row-major
+    order k) for each SHARD_SPECS entry: "shard_{name}_{k}" its data and
+    "shard_{name}_{k}_start" its first index along each dim."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.data.pipeline import shard_batch
+    for name, spec in SHARD_SPECS.items():
+        arr = shard_batch(batch, mesh, P(*spec))
+        by_dev = {s.device: s for s in arr.addressable_shards}
+        for k, d in enumerate(mesh.devices.flat):
+            sh = by_dev[d]
+            out[f"shard_{name}_{k}"] = np.asarray(sh.data)
+            out[f"shard_{name}_{k}_start"] = np.asarray(
+                [sl.start or 0 for sl in sh.index], np.int64)
 
 
 def put_grid(out, grid):

@@ -3,7 +3,7 @@ held to the JAX package (the port's `tests/dist/run_multihost.py`).
 
     torch_run_multihost.py NPROC LOCAL [EXCHANGE] [--grid RxC]
                            [--mode queries|collectives|surface|features|
-                                   resume|spmm]
+                                   resume|spmm|moe]
                            [--configs all|td|adaptive|cover|traced]
                            [--telemetry] [--ft] [--sections S,...]
                            [--ftdir DIR] [--ref REF.npz]
@@ -72,6 +72,23 @@ features (`spmm_features`), unweighted and weighted; every rank's whole
 (n, d) outputs must equal the port's stacked grid's on the CPU, bit for
 bit (the same blocks summed in the same order).
 
+--mode moe (the grid a ("data", "model") mesh): every rank runs
+`models.moe.moe_apply` over the group's `ProcessMesh` on an MoE layer
+(`moe_inputs`: 30 tokens, 8 experts of which 6 route, top-2; tokens over
+both axes, experts over "model") for each (quant_dispatch, fsdp_axis) of
+MOE_CASES -- output, aux and the gradients of sum(y * gy) + aux --
+`data.shard_batch` of an (8, 6) batch for each SHARD_SPECS entry, and
+one `train.make_train_step` step of a 2-layer MoE LM whose MoE runs over
+the group, beside the same step over a stacked 2x2 mesh in the rank.  The
+orchestrator holds them to `torch_parity_ref.py ... --moe` (the JAX
+package on forced host devices): outputs and gradients within rtol 1e-4,
+atol 1e-5 of each tensor's largest entry, aux rtol 1e-6, every rank's
+shard equal to its processors' JAX shards (or refused where they do not
+form one block), and the step's loss equal and parameters within rtol
+1e-5, atol 1e-7 of the stacked step's.  It prints a "CHECK <name> ok" line
+for each.  `--ref REF.npz` takes the JAX outputs of `moe_inputs()` from
+REF.npz instead of a child.
+
 --mode resume: every rank loads the JAX package's checkpoint directories
 FTDIR/jax_{RxC}_{tag} of SNAP_CASES and resumes each in the group, under
 "ftx_{tag}_*".
@@ -130,7 +147,7 @@ def parse(argv):
     ap.add_argument("--grid", default=None)
     ap.add_argument("--mode", default="queries",
                     choices=("queries", "collectives", "surface", "features",
-                             "resume", "spmm"))
+                             "resume", "spmm", "moe"))
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--ft", action="store_true")
     ap.add_argument("--sections", default=",".join(SECTIONS))
@@ -540,6 +557,197 @@ def compare_spmm(a, td):
     return a.nproc * len(ref)
 
 
+MOE_CASES = [(False, None), (True, None), (False, "data"), (True, "data")]
+SHARD_SPECS = {"default": (("pod", "data"),), "data_model": (("data", "model"),),
+               "model_data": (("model", "data"),), "model": ("model",),
+               "rows_cols": ("data", "model")}
+
+
+def moe_inputs():
+    """--mode moe's layer (tests/test_torch_moe.py's EP layer) and batch."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    N, d, f, E = 30, 12, 16, 8
+    p = {"x": rng.standard_normal((N, d)).astype(np.float32),
+         "router": (rng.standard_normal((d, E)) * 0.3).astype(np.float32),
+         "w1": (rng.standard_normal((E, d, f)) * 0.2).astype(np.float32),
+         "w3": (rng.standard_normal((E, d, f)) * 0.2).astype(np.float32),
+         "w2": (rng.standard_normal((E, f, d)) * 0.2).astype(np.float32)}
+    p["gy"] = np.random.default_rng(5).standard_normal(
+        (N, d)).astype(np.float32)
+    p["batch"] = np.arange(8 * 6, dtype=np.int32).reshape(8, 6)
+    return dict(p, top_k=2, n_experts=6, capacity_factor=1.25, cap_e_mult=4)
+
+
+class MoECfg:
+    n_experts, top_k, capacity_factor, cap_e_mult = 6, 2, 1.25, 4
+
+
+def moe_train_step(shard, tokens):
+    """One AdamW step of a 2-layer MoE LM (seeded weights) with its MoE
+    over `shard`: (loss, the parameters after the step as numpy)."""
+    import torch
+
+    from repro_torch.models import lm as L
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step)
+    cfg = L.LMConfig(name="moe-group", n_layers=2, d_model=16, n_heads=2,
+                     n_kv_heads=1, d_head=8, d_ff=32, vocab=64,
+                     moe=L.MoESettings(n_experts=4, top_k=2, d_ff_expert=8,
+                                       n_shared=1),
+                     dtype=torch.float32, remat=False)
+    model = L.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tc = TrainConfig(optimizer=AdamWConfig(warmup_steps=0))
+    step = make_train_step(
+        lambda p, b: model.loss(b[0], b[1], mesh=shard), tc)
+    state = init_state(tc, dict(model.named_parameters())).tree()
+    t = torch.from_numpy(tokens)
+    _, info = step(state, (t, t))
+    return float(info["loss"]), {k: v.detach().numpy().copy()
+                                 for k, v in model.named_parameters()}
+
+
+def worker_moe(a):
+    """--mode moe (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import multihost
+    from repro_torch.dist.compat import make_mesh
+    from repro_torch.models import moe as M
+    torch.set_num_threads(1)
+    rank = int(os.environ["REPRO_TMH_RANK"])
+    multihost.initialize("file://" + os.environ["REPRO_TMH_STORE"],
+                         a.nproc, rank, device="cpu", backend="gloo",
+                         timeout_s=a.timeout)
+    mesh = multihost.global_mesh(a.grid, ("data", "model"))
+    data = np.load(os.path.join(a.out, "in.npz"))
+    names = ("x", "router", "w1", "w3", "w2")
+    out = {}
+    for quant, fsdp in MOE_CASES:
+        shard = M.MoEShard(mesh=mesh, token_axes=("data", "model"),
+                           expert_axis="model", fsdp_axis=fsdp,
+                           quant_dispatch=quant)
+        args = {k: torch.from_numpy(data[k]).requires_grad_() for k in names}
+        y, aux = M.moe_apply(args["x"], {k: args[k] for k in names[1:]},
+                             MoECfg, mesh=shard)
+        grads = torch.autograd.grad(
+            torch.sum(y * torch.from_numpy(data["gy"])) + aux,
+            [args[k] for k in names])
+        tag = f"moe_{int(quant)}_{fsdp}"
+        out[f"{tag}_y"] = y.detach().numpy()
+        out[f"{tag}_aux"] = aux.detach().numpy()
+        for k, g in zip(names, grads):
+            out[f"{tag}_g{k}"] = g.numpy()
+    for name, spec in SHARD_SPECS.items():
+        try:
+            out[f"shard_{name}"] = shard_batch(data["batch"], mesh,
+                                               spec).numpy()
+        except ValueError:
+            out[f"shard_{name}_refused"] = np.asarray(True)
+    tokens = np.random.default_rng(6).integers(0, 64, (4, 8)).astype(
+        np.int32)
+    kw = dict(token_axes=("data", "model"), expert_axis="model")
+    loss, params = moe_train_step(M.MoEShard(mesh=mesh, **kw), tokens)
+    sloss, sparams = moe_train_step(M.MoEShard(
+        mesh=make_mesh(a.grid, ("data", "model"), device="cpu"), **kw),
+        tokens)
+    out["train_loss"], out["train_loss_stacked"] = loss, sloss
+    for k in params:
+        out[f"train_p_{k}"], out[f"train_ps_{k}"] = params[k], sparams[k]
+    np.savez(os.path.join(a.out, f"rank{rank}.npz"), **out)
+    multihost.shutdown()
+    print(f"RANK {rank} DONE")
+
+
+def _near(got, want, rtol, atol_frac):
+    import numpy as np
+    want = np.asarray(want)
+    atol = atol_frac * max(float(np.abs(want).max()), 1e-30)
+    return got.shape == want.shape and np.allclose(got, want, rtol=rtol,
+                                                   atol=atol)
+
+
+def _rank_shard(ref, name, a, rank):
+    """The block of JAX's shards a rank's processors hold, or None where
+    they do not form one block."""
+    import numpy as np
+    L = a.local
+    ks = range(rank * L, (rank + 1) * L)
+    blocks = {tuple(ref[f"shard_{name}_{k}_start"]): ref[f"shard_{name}_{k}"]
+              for k in ks}
+    lo = np.min(list(blocks), axis=0)
+    shp = next(iter(blocks.values())).shape
+    hi = np.max(list(blocks), axis=0) + shp
+    box = np.zeros(hi - lo, ref[f"shard_{name}_{ks[0]}"].dtype)
+    seen = np.zeros(hi - lo, bool)
+    for start, blk in blocks.items():
+        sl = tuple(slice(s - l, s - l + n) for s, l, n in zip(start, lo, shp))
+        box[sl], seen[sl] = blk, True
+    return box if seen.all() else None
+
+
+def compare_moe(a, ref_path, td):
+    """Every rank's --mode moe outputs against the JAX reference (and the
+    train step against the rank's stacked step); prints a CHECK line for
+    each item, raises on the first failure."""
+    import numpy as np
+    ref = np.load(ref_path)
+    checks = []
+    for rank in range(a.nproc):
+        got = np.load(os.path.join(td, f"rank{rank}.npz"))
+        for quant, fsdp in MOE_CASES:
+            tag = f"moe_{int(quant)}_{fsdp}"
+            ok = np.allclose(got[f"{tag}_aux"], ref[f"{tag}_aux"], rtol=1e-6)
+            ok &= all(_near(got[f"{tag}_{k}"], ref[f"{tag}_{k}"], 1e-4, 1e-5)
+                      for k in ("y", "gx", "grouter", "gw1", "gw3", "gw2"))
+            checks.append((f"{tag}_rank{rank}", ok))
+        for name in SHARD_SPECS:
+            want = _rank_shard(ref, name, a, rank)
+            if want is None:
+                ok = f"shard_{name}_refused" in got.files
+            else:
+                ok = f"shard_{name}" in got.files and \
+                    np.array_equal(got[f"shard_{name}"], want)
+            checks.append((f"shard_{name}_rank{rank}", ok))
+        ok = float(got["train_loss"]) == float(got["train_loss_stacked"])
+        pk = [k[len("train_p_"):] for k in got.files
+              if k.startswith("train_p_")]
+        ok &= bool(pk) and all(np.allclose(
+            got[f"train_p_{k}"], got[f"train_ps_{k}"], rtol=1e-5, atol=1e-7)
+            for k in pk)
+        checks.append((f"train_step_rank{rank}", ok))
+    for name, ok in checks:
+        print(f"CHECK {name} {'ok' if ok else 'FAILED'}")
+    bad = [n for n, ok in checks if not ok]
+    if bad:
+        raise AssertionError(f"--mode moe: {bad} differ from the reference")
+    return len(checks)
+
+
+def moe_reference(td, ref=None):
+    """--mode moe's inputs in td/in.npz and the JAX package's outputs (a
+    child on forced host devices; `ref`, a path, when already made from
+    the same inputs) -> path of its .npz."""
+    import numpy as np
+    np.savez(os.path.join(td, "in.npz"), **moe_inputs())
+    if ref is not None:
+        return ref
+    ref = os.path.join(td, "ref.npz")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run([sys.executable, os.path.join(HERE,
+                                                     "torch_parity_ref.py"),
+                        os.path.join(td, "in.npz"), ref, "2x2", "--moe"],
+                       env=env, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"the JAX reference failed:\n{r.stdout}\n"
+                             f"{r.stderr}")
+    return ref
+
+
 def flat_tree(out, prefix, tree):
     """A nested dict of arrays into `out` under "{prefix}/{path}"."""
     import numpy as np
@@ -857,6 +1065,8 @@ def main(argv):
         if "--ftdir" not in argv and ("features" in argv
                                       or "resume" in argv):
             argv = list(argv) + ["--ftdir", td]
+        pa = parse(argv)
+        moe_ref = moe_reference(td, pa.ref) if pa.mode == "moe" else None
         a, outs = run_group(argv, td)
         what = f"{a.nproc} ranks x {a.local}, grid {a.grid[0]}x{a.grid[1]}"
         if a.mode == "queries":
@@ -869,6 +1079,9 @@ def main(argv):
             n_keys = compare(a, ref, td)
             print(f"multihost {what} exchange={a.exchange}: {n_keys} "
                   f"outputs on every rank bit-identical to the reference")
+        elif a.mode == "moe":
+            print(f"multihost {what} moe: {compare_moe(a, moe_ref, td)} "
+                  f"checks passed")
         elif a.mode == "spmm":
             print(f"multihost {what} spmm: {compare_spmm(a, td)} outputs "
                   f"bit-identical to the stacked grid's")
@@ -886,4 +1099,5 @@ if __name__ == "__main__":
         args = parse(sys.argv[1:])
         {"queries": worker_queries, "collectives": worker_collectives,
          "surface": worker_surface, "features": worker_features,
-         "resume": worker_resume, "spmm": worker_spmm}[ROLE](args)
+         "resume": worker_resume, "spmm": worker_spmm,
+         "moe": worker_moe}[ROLE](args)

@@ -874,3 +874,59 @@ def test_sparse_ops_card_equal_cpu(cuda_device):
             got = SP.embedding_bag(h.to(dev), *(a.to(dev) for a in args))
             torch.testing.assert_close(got.cpu(), SP.embedding_bag(h, *args),
                                        rtol=0, atol=0)
+
+
+ARCH_IDS = ["bfs-rmat", "deepfm", "egnn", "gemma2-2b", "glm4-9b",
+            "graphsage-reddit", "h2o-danube-1.8b", "kimi-k2-1t-a32b", "mace",
+            "nequip", "qwen2-moe-a2.7b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_registry_smoke_on_the_card(cuda_device, arch_id):
+    from repro_torch.configs import ARCHS, get_arch
+    assert sorted(ARCHS) == ARCH_IDS
+    get_arch(arch_id).smoke()
+
+
+@pytest.mark.gpu
+def test_moe_over_a_group_on_the_card_equals_stacked(cuda_device, tmp_path):
+    """A 1-rank gloo group on the card holding a 2x2 ("data", "model")
+    `ProcessMesh` (every collective through its one-member groups, staged
+    through the host), fp32, with fsdp_axis and int8 dispatch: output,
+    aux and gradients equal the stacked mesh's on the card within rtol
+    1e-5 / atol 1e-6 of each tensor's largest entry (`index_add_` on the
+    card adds in no fixed order)."""
+    from repro_torch.dist import make_mesh, multihost
+    from repro_torch.models import moe as M
+
+    class Cfg:
+        n_experts, top_k, capacity_factor, cap_e_mult = 6, 2, 1.25, 4
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    names = ("x", "router", "w1", "w3", "w2")
+    shapes = ((64, 32), (32, 8), (8, 32, 48), (8, 32, 48), (8, 48, 32))
+    p = {k: torch.randn(s, generator=g, device=cuda_device) * 0.3
+         for k, s in zip(names, shapes)}
+    gy = torch.randn((64, 32), generator=g, device=cuda_device)
+
+    def run(mesh, **kw):
+        args = {k: v.clone().requires_grad_() for k, v in p.items()}
+        y, aux = M.moe_apply(args["x"], {k: args[k] for k in names[1:]},
+                             Cfg, mesh=M.MoEShard(
+                                 mesh=mesh, token_axes=("data", "model"),
+                                 expert_axis="model", **kw))
+        return [y, aux] + list(torch.autograd.grad(
+            torch.sum(y * gy) + aux, list(args.values())))
+
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0,
+                         device=cuda_device, backend="gloo")
+    try:
+        pm = multihost.global_mesh((2, 2), ("data", "model"))
+        stacked = make_mesh((2, 2), ("data", "model"), device=cuda_device)
+        for kw in ({}, {"fsdp_axis": "data", "quant_dispatch": True}):
+            for got, want in zip(run(pm, **kw), run(stacked, **kw)):
+                scale = float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=1e-5,
+                                           atol=1e-6 * max(scale, 1.0))
+    finally:
+        multihost.shutdown()

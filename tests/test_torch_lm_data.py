@@ -3,8 +3,9 @@
   * `synthetic_lm_batches` bit for bit equal to the JAX package's for a
     few (vocab, batch, seq, seed);
   * `Prefetcher` yields the stream in order and stops; `shard_batch` puts
-    a batch on a `StackedMesh`'s device and raises NotImplementedError on
-    a `ProcessMesh`;
+    a batch on a `StackedMesh`'s device and gives a `ProcessMesh`'s rank
+    the rows its processors hold (tests/test_torch_moe_group.py holds 4
+    gloo ranks to JAX's shards);
   * `SHAPES` equal to JAX's; `smoke_lm` of all five configs with
     `device="cpu"`, and the entry points raising without a card when no
     device is named;
@@ -14,6 +15,7 @@
   * `scripts/torch_train_lm.py 21 --device cpu` (a child): the loss drops
     by more than 0.2 ("IMPROVED"), as the JAX example reports.
 """
+import dataclasses
 import importlib
 import os
 import re
@@ -75,11 +77,22 @@ def test_prefetcher_and_shard_batch():
     np.testing.assert_array_equal(placed[1].numpy(), got[0][1])
     named = shard_batch({"tokens": got[1][0]}, mesh)
     assert torch.equal(named["tokens"], torch.from_numpy(got[1][0]))
+    # a ProcessMesh (once refused, ROADMAP A21): a rank receives the rows
+    # its processors hold -- a 1-rank group all of them, rank 1 of four
+    # ("data" coordinate 0) the first half of P(("pod", "data"))'s rows,
+    # rank 2 ("data" 1) the second half of P(("data", "model"))'s quarter
     pm = ProcessMesh(shape=(2, 2), axis_names=("data", "model"), rank=0,
                      world=1, i0=0, j0=0, Rl=2, Cl=2,
                      device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
-        shard_batch(got[0], pm)
+    whole = shard_batch(got[0], pm)
+    assert all(torch.equal(w, torch.from_numpy(g))
+               for w, g in zip(whole, got[0]))
+    quad = np.arange(8 * 3).reshape(8, 3)
+    r1 = dataclasses.replace(pm, rank=1, world=4, i0=0, j0=1, Rl=1, Cl=1)
+    np.testing.assert_array_equal(shard_batch(quad, r1).numpy(), quad[:4])
+    r2 = dataclasses.replace(r1, rank=2, i0=1, j0=0)
+    np.testing.assert_array_equal(
+        shard_batch(quad, r2, (("data", "model"),)).numpy(), quad[4:6])
 
 
 def test_shapes_equal_jax():

@@ -20,7 +20,8 @@ package's (`repro.models.moe`), on the CPU:
     fsdp_axis="data" -- output, aux and the gradients of x, router, w1,
     w3, w2; the EP result is not the EP = 1 one (each shard has its own
     capacity, padded tokens route, aux is the shards' mean);
-  * `moe_apply` over a `ProcessMesh` raises NotImplementedError.
+  * `moe_apply` over a 1-rank group's `ProcessMesh` equals the stacked
+    path (tests/test_torch_moe_group.py holds 4 gloo ranks to JAX).
 
 Tolerances: routing indices exactly, weights and aux rtol 1e-6; outputs
 and gradients rtol 1e-4 with atol 1e-5 of each tensor's largest entry
@@ -40,7 +41,7 @@ from repro.models import lm as JL
 from repro.models import moe as JM
 from repro_torch.convert import load_jax_params
 from repro_torch.dist import make_mesh
-from repro_torch.dist.multihost import ProcessMesh
+from repro_torch.dist import multihost
 from repro_torch.models import lm as L
 from repro_torch.models import moe as M
 
@@ -285,14 +286,41 @@ def test_ep_on_a_stacked_mesh_equals_shard_map(ep_data, quant, fsdp):
                            atol=1e-3)
 
 
-def test_ep_over_a_process_group_raises():
-    pm = ProcessMesh(shape=(2, 2), axis_names=("data", "model"), rank=0,
-                     world=1, i0=0, j0=0, Rl=2, Cl=2,
-                     device=torch.device("cpu"), backend="gloo")
-    shard = M.MoEShard(mesh=pm, token_axes=("data", "model"),
-                       expert_axis="model")
-    p = _layer(6, 8, 12, 16, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
-        M.moe_apply(_t(p["x"]), {k: _t(p[k]) for k in
-                                 ("router", "w1", "w3", "w2")}, Cfg,
-                    mesh=shard)
+def _ep_run(shard, p):
+    """moe_apply over `shard` on the EP layer: (y, aux, the gradients of
+    sum(y * gy) + aux w.r.t. x, router, w1, w3, w2)."""
+    names = ("x", "router", "w1", "w3", "w2")
+    args = {k: _t(p[k]).requires_grad_() for k in names}
+    y, aux = M.moe_apply(args["x"], {k: args[k] for k in names[1:]}, EPCfg,
+                         mesh=shard)
+    grads = torch.autograd.grad(torch.sum(y * _t(p["gy"])) + aux,
+                                [args[k] for k in names])
+    return y.detach(), aux.detach(), grads
+
+
+def test_ep_over_a_process_group_raises(tmp_path):
+    """Over a `ProcessMesh` the EP path once raised (ROADMAP A21); now it
+    runs.  A 1-rank group holds all four processors of the 2x2 mesh, every
+    all_to_all, the FSDP gather and the reductions going through its
+    one-member groups: output, aux and gradients equal the stacked mesh's,
+    with and without int8 dispatch and fsdp_axis="data"."""
+    p = _layer(4, EP["N"], EP["d"], EP["f"], EP["E"])
+    p["gy"] = np.random.default_rng(5).standard_normal(
+        (EP["N"], EP["d"])).astype(np.float32)
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, device="cpu")
+    try:
+        pm = multihost.global_mesh((2, 2), ("data", "model"))
+        stacked = make_mesh((2, 2), ("data", "model"), device="cpu")
+        for quant in (False, True):
+            for fsdp in (None, "data"):
+                kw = dict(token_axes=("data", "model"), expert_axis="model",
+                          fsdp_axis=fsdp, quant_dispatch=quant)
+                y, aux, grads = _ep_run(M.MoEShard(mesh=pm, **kw), p)
+                ys, auxs, gs = _ep_run(M.MoEShard(mesh=stacked, **kw), p)
+                assert torch.equal(y, ys)
+                np.testing.assert_allclose(float(aux), float(auxs),
+                                           rtol=1e-6)
+                for g, want in zip(grads, gs):
+                    _close(g, want.numpy())
+    finally:
+        multihost.shutdown()

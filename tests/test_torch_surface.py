@@ -16,14 +16,17 @@ cache tests):
   * every name of the JAX packages' `__all__` / import lists resolves on
     the port, except those a later ROADMAP item brings and those with no
     counterpart in the port (each listed here with its reason); for the
-    graph-learning, recsys and LM modules every module-level name of each
-    JAX module has a counterpart in the port's module or model class.
+    graph-learning, recsys and LM modules, the registry and the dry run
+    every module-level name of each JAX module has a counterpart in the
+    port's module or model class, and the private JAX helpers listed here
+    (XLA's HLO text, NamedShardings) have none.
 
 Inputs: `repro.graphgen.rmat_edges(jax.random.key(0), 8, 8)` as numpy,
 uint8 weights `(|31 u + v| mod 255) + 1`, roots from
 `np.random.default_rng(1)` among degree > 0 vertices.
 """
 import importlib
+import os
 import types
 import warnings
 
@@ -44,11 +47,7 @@ SCALE, EF = 8, 8
 N = 1 << SCALE
 GRIDS = [(1, 1), (2, 2)]
 # JAX names whose port comes with a later ROADMAP item
-WAITING = {"repro.configs": {
-    "ARCHS": "configs/registry.py, ROADMAP A16 part 3",
-    "get_arch": "configs/registry.py, ROADMAP A16 part 3",
-    "DryrunSpec": "the port's dry run (launch/dryrun.py), ROADMAP A16 "
-                  "part 3"}}
+WAITING = {}
 # JAX names with no counterpart in the port, and why
 JAX_ONLY = {"repro.dist": {
     "shard_map": "the port runs no shard_map program: the stacked grid's "
@@ -65,15 +64,9 @@ MODULE_CLASSES = {"models.gnn.graphsage": "GraphSAGE",
                   "models.recsys.deepfm": "DeepFM",
                   "models.lm": "LM"}
 METHODS = {"apply": "forward", "loss_fn": "loss"}
-_NEXT = "the port's dry run, ROADMAP A16 part 3"
-MODULE_WAITING = {
-    "configs.common": {"DryrunSpec": _NEXT, "abstract": _NEXT},
-    "configs.gnn_common": {"build_sage_dryrun": _NEXT,
-                           "build_equiv_dryrun": _NEXT,
-                           "build_egnn_dryrun": _NEXT},
-    "configs.recsys_common": {"build_deepfm_dryrun": _NEXT},
-    "configs.bfs_rmat": {"build_bfs_dryrun": _NEXT},
-    "configs.lm_common": {"build_lm_dryrun": _NEXT}}
+MODULE_WAITING = {}
+_HLO = ("reads the text of XLA's compiled HLO module; the port traces its "
+        "steps on the meta device and has no HLO (launch/roofline.py)")
 MODULE_JAX_ONLY = {
     "models.recsys.deepfm": {
         "param_shardings": "PartitionSpecs of the table over a device mesh; "
@@ -88,7 +81,20 @@ MODULE_JAX_ONLY = {
     "train.train_step": {
         "state_shardings": "PartitionSpecs of the ZeRO-1 optimizer state "
                            "over a device mesh; the port holds the state "
-                           "on one card"}}
+                           "on one card"},
+    "launch.roofline": {"parse_collective_bytes": _HLO, "analyze_hlo": _HLO,
+                        "cost_analysis_dict": _HLO}}
+# private JAX helpers with no counterpart, and why (the names above are
+# the modules' public ones)
+_NS = ("builds a jax NamedSharding, which has no counterpart: the port's "
+       "specs carry each leaf's split as a configs.common.Split")
+PRIVATE_JAX_ONLY = {
+    "launch.roofline": {"_shape_bytes": _HLO, "_group_size": _HLO},
+    "configs.lm_common": {"_ns": _NS, "_cache_shardings": _NS},
+    "configs.gnn_common": {"_ns": _NS, "_edges_abs": "ShapeDtypeStructs of "
+                           "an edge list, which the port's build_*_dryrun "
+                           "functions make as meta tensors in place"},
+    "configs.recsys_common": {"_ns": _NS}}
 PORTED_MODULES = (
     "sparse.segment", "sparse.embedding_bag", "sparse.sampler",
     "core.spmm2d", "optim.adamw", "optim.grad_compress",
@@ -100,7 +106,8 @@ PORTED_MODULES = (
     "configs.lm_common", "configs.gemma2_2b", "configs.glm4_9b",
     "configs.h2o_danube_1_8b", "configs.kimi_k2_1t_a32b",
     "configs.qwen2_moe_a2_7b", "train.train_step", "train.serve_step",
-    "data.pipeline", "launch.train")
+    "data.pipeline", "launch.train", "configs.registry", "launch.mesh",
+    "launch.roofline", "launch.dryrun")
 PACKAGES = ("algos", "api", "core", "ckpt", "serve", "obs", "runtime",
             "scenarios", "graphgen", "dist", "sparse", "optim", "configs",
             "train", "data")
@@ -428,9 +435,23 @@ def _defined_names(mod) -> list:
     return out
 
 
+def _jax_module(name):
+    """repro.{name}, imported with the environment kept: the JAX dry run
+    sets XLA_FLAGS (512 host devices) when imported, which this process's
+    children must not inherit."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.{name}")
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+
+
 @pytest.mark.parametrize("name", PORTED_MODULES)
 def test_every_jax_module_name_has_a_counterpart(name):
-    jax_mod = importlib.import_module(f"repro.{name}")
+    jax_mod = _jax_module(name)
     port = importlib.import_module(f"repro_torch.{name}")
     cls = getattr(port, MODULE_CLASSES[name]) if name in MODULE_CLASSES \
         else None
@@ -443,6 +464,15 @@ def test_every_jax_module_name_has_a_counterpart(name):
     assert missing == []
     for k in list(waiting) + list(jax_only):
         assert k in _defined_names(jax_mod), k
+        assert not hasattr(port, k), f"{k} arrived: drop it from the list"
+
+
+@pytest.mark.parametrize("name", sorted(PRIVATE_JAX_ONLY))
+def test_private_jax_only_helpers_have_no_counterpart(name):
+    jax_mod = _jax_module(name)
+    port = importlib.import_module(f"repro_torch.{name}")
+    for k in PRIVATE_JAX_ONLY[name]:
+        assert callable(getattr(jax_mod, k)), k
         assert not hasattr(port, k), f"{k} arrived: drop it from the list"
 
 
