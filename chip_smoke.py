@@ -325,10 +325,17 @@ Phases, one line or more each on stdout:
                repro_torch.launch.dryrun` on the 16x16 mesh, each a
                process with CUDA hidden (gemma2-2b train_4k,
                qwen2-moe-a2.7b decode_32k, graphsage-reddit ogb_products,
-               deepfm train_batch, bfs-rmat rmat_weak), each record's
-               roofline terms and per-device argument GiB printed -- counts
-               of shapes times the H100's datasheet rates, not
-               measurements; (c) one qwen2-moe-a2.7b MoE layer at full
+               deepfm train_batch, bfs-rmat rmat_weak) and, in two more
+               such processes, `scripts/torch_hillclimb.py` on four
+               experiments (kimi_train/fsdp+cap1.0+quant+mb4,
+               gemma_decode/seqshard, sage_products/bf16, bfs/chunk_256k),
+               every record ok, bfs/chunk_256k's memory term below the
+               bfs-rmat cell's, then `scripts/torch_gen_experiments.py`
+               over all nine records with a row for each experiment and
+               none "(failed)"; each record's roofline terms and
+               per-device argument GiB printed -- counts of shapes times
+               the H100's datasheet rates, not measurements; (c) one
+               qwen2-moe-a2.7b MoE layer at full
                width (64 experts, 60 routed, top-4, bf16, 4096 tokens)
                expert-parallel over 2 gloo ranks sharing the card,
                forward and backward equal to the stacked path's within

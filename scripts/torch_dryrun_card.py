@@ -16,10 +16,18 @@ Legs (every check raises; the script exits non-zero on the first):
      process of its own with CUDA hidden (the dry run traces on the meta
      device and needs no card): gemma2-2b train_4k, qwen2-moe-a2.7b
      decode_32k, graphsage-reddit ogb_products, deepfm train_batch,
-     bfs-rmat rmat_weak.  Check: every record's status is "ok".  Logged:
+     bfs-rmat rmat_weak.  Beside them, in two more processes with CUDA
+     hidden, `scripts/torch_hillclimb.py` on four experiments:
+     kimi_train/fsdp+cap1.0+quant+mb4 (four knobs at once) in one,
+     gemma_decode/seqshard, sage_products/bf16 and bfs/chunk_256k in the
+     other; then `scripts/torch_gen_experiments.py` on the five cells'
+     and the four experiments' records.  Check: every record's status is
+     "ok"; bfs/chunk_256k's memory term is below the bfs-rmat cell's (the
+     traced level scans its engine's own 2^18-edge chunk); the report has
+     each experiment's row and no "(failed)" row among them.  Logged:
      each record's trace seconds, roofline terms and per-device argument
-     GiB.  These are counts of shapes times the H100's datasheet rates,
-     not measurements.
+     (and temp) GiB.  These are counts of shapes times the H100's
+     datasheet rates, not measurements.
   c  one qwen2-moe-a2.7b MoE layer at full width (64 experts allocated, 60
      routed, top-4, d_model 2048, d_ff 1408, bf16; the router fp32) over
      4096 tokens, expert-parallel over ep = 2: two gloo ranks sharing the
@@ -54,6 +62,11 @@ TOL = 2e-2                 # (c): |group - stacked| <= TOL * max |stacked|
 CELLS = (("gemma2-2b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"),
          ("graphsage-reddit", "ogb_products"), ("deepfm", "train_batch"),
          ("bfs-rmat", "rmat_weak"))
+# (b) the hillclimb's experiments, one process a group (the first is the
+# longest trace: four microbatches of kimi-k2's train step)
+HILLCLIMB = (("kimi_train/fsdp+cap1.0+quant+mb4",),
+             ("gemma_decode/seqshard", "sage_products/bf16",
+              "bfs/chunk_256k"))
 TOKENS = 4096
 RANK_TIMEOUT_S = 240
 DRYRUN_TIMEOUT_S = 240
@@ -80,6 +93,24 @@ def start_cells(workdir: str) -> list:
             env=env, stdout=log_f, stderr=subprocess.STDOUT)
         log_f.close()
         runs.append(((arch, shape), out, p))
+    return runs
+
+
+def start_hillclimb(workdir: str) -> list:
+    """Every HILLCLIMB group's experiments, a process each in a directory
+    of its own (the script writes hillclimb_results.json to its working
+    directory), started at once: [(names, directory, Popen)]."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=SRC)
+    runs = []
+    for k, names in enumerate(HILLCLIMB):
+        d = os.path.join(workdir, f"hillclimb{k}")
+        os.makedirs(d)
+        log_f = open(os.path.join(d, "log"), "w")
+        p = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "torch_hillclimb.py"),
+             *names], cwd=d, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        log_f.close()
+        runs.append((names, d, p))
     return runs
 
 
@@ -112,6 +143,79 @@ def finish_cells(runs, workdir: str, t0: float) -> dict:
         rep[f"{arch}|{shape}"] = {"lower_s": rec["lower_s"],
                                   "roofline": rl, "memory": mem}
     return rep
+
+
+def finish_hillclimb(runs, cells: dict, workdir: str, t0: float) -> dict:
+    """Wait for the hillclimb's processes, check and log their records,
+    then render the report over them and the cells' records."""
+    recs = {}
+    for names, d, p in runs:
+        try:
+            p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        with open(os.path.join(d, "log")) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"(b) the hillclimb of {names} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+        with open(os.path.join(d, "hillclimb_results.json")) as f:
+            got = json.load(f)
+        for name in names:
+            rec = got.get(name, {"status": "missing"})
+            if rec["status"] != "ok":
+                raise AssertionError(f"(b) hillclimb {name}: {rec['status']}"
+                                     f" {rec.get('error', '')}\n"
+                                     f"{rec.get('tb', '')}")
+            log(f"(b) hillclimb {name}: trace {rec['lower_s']} s, compute "
+                f"{rec['compute_s']:.4g} s, memory {rec['memory_s']:.4g} s, "
+                f"collective {rec['collective_s']:.4g} s "
+                f"({rec['dominant']}), argument {rec['arg_gib']:.3f} GiB / "
+                f"device, temp {rec['temp_gib']:.3f} GiB / device")
+            recs[name] = rec
+    bfs = cells["bfs-rmat|rmat_weak"]["roofline"]["memory_s"]
+    small = recs["bfs/chunk_256k"]["memory_s"]
+    if not small < bfs:
+        raise AssertionError(f"(b) bfs/chunk_256k's memory term {small} s "
+                             f"is not below the bfs-rmat cell's {bfs} s")
+    return {"records": recs, "report": render_report(recs, workdir)}
+
+
+def render_report(recs: dict, workdir: str) -> dict:
+    """`scripts/torch_gen_experiments.py` over the cells' and the
+    hillclimb's records, in a process with CUDA hidden; checks that each
+    experiment's row is there and none of them reads "(failed)"."""
+    d = os.path.join(workdir, "report")
+    os.makedirs(d)
+    dr = {}
+    for k in range(len(CELLS)):
+        with open(os.path.join(workdir, f"cell{k}.json")) as f:
+            dr.update(json.load(f))
+    for name, obj in (("dryrun_results.json", dr),
+                      ("hillclimb_results.json", recs)):
+        with open(os.path.join(d, name), "w") as f:
+            json.dump(obj, f)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=SRC)
+    res = subprocess.run(
+        [sys.executable, os.path.join(HERE, "torch_gen_experiments.py")],
+        cwd=d, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"(b) the report exited {res.returncode}:\n"
+                             f"{res.stderr[-3000:]}")
+    with open(os.path.join(d, "EXPERIMENTS_torch.md")) as f:
+        text = f.read()
+    for name in recs:
+        if f"| {name} | (failed)" in text or f"| {name} | " not in text:
+            raise AssertionError(f"(b) the report's row of {name} is "
+                                 "missing or failed")
+    n_lines = text.count("\n") + 1
+    log(f"(b) report: {n_lines} lines, a row for each of the "
+        f"{len(recs)} experiments, none failed")
+    return {"lines": n_lines}
 
 
 # ---------------------------------------------------------------------------
@@ -253,14 +357,18 @@ def run(a) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         cells = start_cells(workdir)
+        climbs = start_hillclimb(workdir)
         ranks = start_ranks(a, workdir)
         try:
             report["smokes_s"] = run_smokes(dev)
             report["moe_group"] = finish_ranks(ranks, workdir, t0)
             report["moe_group"]["wall_s"] = time.perf_counter() - t0
             report["cells"] = finish_cells(cells, workdir, t0)
+            report["hillclimb"] = finish_hillclimb(climbs, report["cells"],
+                                                   workdir, t0)
+            report["hillclimb"]["wall_s"] = time.perf_counter() - t0
         finally:
-            for p in ranks + [c[2] for c in cells]:
+            for p in ranks + [c[2] for c in cells + climbs]:
                 if p.poll() is None:
                     p.kill()
                     p.wait()

@@ -6,11 +6,13 @@ while_loop over levels) at the Table-1 scale for the mesh size (256 GPUs
 -> scale 29, 512 -> scale 30, edge factor 16); its roofline weights the
 loop body, a loop of unknown trip count, once.  The port's dry run traces
 one top-down level of the search on the meta device -- the expand
-exchange, the CSC scan of one 2^20-edge chunk on every processor with the
-frontier at its padded maximum, the fold and the frontier update -- then
-the deferred-predecessor `finalize`.  The engine reads each level's scan
-total on the host; the traced level is given the chunk instead
-(`_one_level`, a route only the dry run takes).  `smoke_bfs` runs the
+exchange, the CSC scan of one chunk of the engine's `edge_chunk` (2^20
+edges in the dry-run cell) on every processor with the frontier at its
+padded maximum, the fold and the frontier update -- then the
+deferred-predecessor `finalize`.  The engine reads each level's scan
+total on the host; the traced level is given one chunk instead
+(`_one_level`, a route only the dry run and the hillclimb take), as
+JAX's analyzer weights the chunk loop's body once.  `smoke_bfs` runs the
 port's `BFS2D` at SCALE 7 on 1x1.
 """
 from __future__ import annotations
@@ -49,10 +51,11 @@ def _engine(grid: Grid2D, mesh, axes: MeshAxes):
 
 def _one_level(engine, col_off, row_idx, nnz, root):
     """One top-down level with every processor's frontier full (S
-    vertices) and one edge chunk to scan, then `finalize`.  `root` is
-    the search's, as in JAX's spec; a full frontier stands for it.  The
-    level's plan is `plan_level`'s with each scan total left on the device
-    (a (1,) index where the engine reads a 0-dim one back)."""
+    vertices) and one chunk of the engine's `edge_chunk` edges to scan,
+    then `finalize`.  `root` is the search's, as in JAX's spec; a full
+    frontier stands for it.  The level's plan is `plan_level`'s with each
+    scan total left on the device (a (1,) index where the engine reads a
+    0-dim one back)."""
     from repro_torch.algos.bfs import LevelPlan, topdown_step
     from repro_torch.core import frontier as F
     from repro_torch.core.types import BFSState, LocalGraph2D
@@ -77,7 +80,8 @@ def _one_level(engine, col_off, row_idx, nnz, root):
              for i, j in topo.coords()]
     counts = topo.psum_all(st.front_cnt)
     plan = LevelPlan(all_front, front_total[..., None], cumul, counts)
-    st, _ = topdown_step(engine, graph, st, plan, [EDGE_CHUNK] * grid.P)
+    st, _ = topdown_step(engine, graph, st, plan,
+                         [engine.edge_chunk] * grid.P)
     return engine.program.finalize(engine, st)
 
 
@@ -100,9 +104,9 @@ def build_bfs_dryrun(_cfg, shape, mesh, axes: MeshAxes):
     return DryrunSpec(
         fn=lambda *a: _one_level(engine, *a),
         args=(col_off, row_idx, nnz, root), in_splits=None, out_splits=None,
-        note=f"one top-down level (full frontier, one {EDGE_CHUNK}-edge "
-             f"chunk a processor) + finalize, scale={scale} grid={R}x{C} "
-             f"e_max/dev={e_max}")
+        note=f"one top-down level (full frontier, one "
+             f"{engine.edge_chunk}-edge chunk a processor) + finalize, "
+             f"scale={scale} grid={R}x{C} e_max/dev={e_max}")
 
 
 def smoke_bfs(device=None):

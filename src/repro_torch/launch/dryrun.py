@@ -54,11 +54,28 @@ def model_flops_global(arch, shape: str) -> float | None:
     return None
 
 
+def trace_spec(spec, mesh, model_flops: float | None = None):
+    """Trace `spec`'s step once on the meta device over `mesh` and account
+    for it per device: (memory, `roofline.Roofline`).  memory holds the
+    arguments' and outputs' shards under the spec's splits, the trace's
+    peak of live intermediates / chips as temp_bytes, and null alias and
+    code bytes.  model_flops is GLOBAL (`model_flops_global`)."""
+    from repro_torch.configs.common import shard_bytes
+    from repro_torch.launch import roofline
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    count = roofline.count_step(spec.fn, *spec.args)
+    rl = roofline.analyze(count, model_flops=model_flops, n_chips=mesh.size)
+    memory = dict(
+        argument_bytes=shard_bytes(spec.args, spec.in_splits, sizes),
+        output_bytes=shard_bytes(count.out, spec.out_splits, sizes),
+        temp_bytes=int(count.peak_bytes // mesh.size),
+        alias_bytes=None, code_bytes=None)
+    return memory, rl
+
+
 def run_cell(arch_id: str, shape: str, mesh_kind: str, results: dict,
              out_path: str):
     from repro_torch.configs import get_arch
-    from repro_torch.configs.common import shard_bytes
-    from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_production_mesh, mesh_axes
 
     key = f"{arch_id}|{shape}|{mesh_kind}"
@@ -71,28 +88,19 @@ def run_cell(arch_id: str, shape: str, mesh_kind: str, results: dict,
     if shape in arch.skip_shapes:
         rec.update(status="skipped", reason=arch.skip_shapes[shape])
         results[key] = rec
-        _flush(results, out_path)
+        write_results(results, out_path)
         print(f"[skip] {key}: {rec['reason']}")
         return
 
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
     axes = mesh_axes(mesh)
-    sizes = dict(zip(mesh.axis_names, mesh.shape))
     t0 = time.time()
     try:
         spec = arch.build_dryrun(shape, mesh, axes)
-        count = roofline.count_step(spec.fn, *spec.args)
+        memory, rl = trace_spec(spec, mesh, model_flops_global(arch, shape))
         t_lower = time.time() - t0
-        rl = roofline.analyze(count, model_flops=model_flops_global(
-            arch, shape), n_chips=mesh.size)
-        rec.update(
-            status="ok", note=spec.note, lower_s=round(t_lower, 1),
-            memory=dict(
-                argument_bytes=shard_bytes(spec.args, spec.in_splits, sizes),
-                output_bytes=shard_bytes(count.out, spec.out_splits, sizes),
-                temp_bytes=int(count.peak_bytes // mesh.size),
-                alias_bytes=None, code_bytes=None),
-            roofline=rl.as_dict())
+        rec.update(status="ok", note=spec.note, lower_s=round(t_lower, 1),
+                   memory=memory, roofline=rl.as_dict())
         print(f"[ok]   {key}: trace={t_lower:.1f}s "
               f"dom={rl.dominant} c={rl.compute_s:.3e} m={rl.memory_s:.3e} "
               f"w={rl.collective_s:.3e}")
@@ -101,10 +109,12 @@ def run_cell(arch_id: str, shape: str, mesh_kind: str, results: dict,
                    traceback=traceback.format_exc()[-2000:])
         print(f"[FAIL] {key}: {type(e).__name__}: {e}")
     results[key] = rec
-    _flush(results, out_path)
+    write_results(results, out_path)
 
 
-def _flush(results, path):
+def write_results(results, path):
+    """The records as JSON at `path`, replaced whole (a reader never sees
+    half a file)."""
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(results, f, indent=1)

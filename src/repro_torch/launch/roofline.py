@@ -7,8 +7,9 @@ Three terms, per device (per card):
 
 The rates are one NVIDIA H100 SXM 80GB's at its full 700 W (NVIDIA's data
 sheet; the JAX package's are a TPU v5e's): 989 TFLOP/s dense bf16, 3.35
-TB/s of HBM, and NVLink 4's 450 GB/s each way as the link.  A roofline of
-the dry run is a count of shapes times these rates: no card ran it.
+TB/s of HBM, and NVLink 4's 450 GB/s each way as the link; 80 GB of HBM
+a card.  A roofline of the dry run is a count of shapes times these
+rates: no card ran it.
 
 Where the JAX package parses the compiled, partitioned HLO text, the port
 counts the step it traces on the meta device (`count_step`):
@@ -54,6 +55,7 @@ from repro_torch.dist.wire import COLLECTIVES, ring_bytes  # noqa: F401
 PEAK_FLOPS = 989e12       # bf16 dense per card (H100 SXM, 700 W)
 HBM_BW = 3.35e12          # bytes/s (H100 SXM HBM3)
 ICI_BW = 450e9            # bytes/s each way (H100 NVLink 4)
+HBM_BYTES = 80e9          # bytes of HBM per card (H100 SXM 80GB)
 
 
 def _distinct_bytes(t: torch.Tensor) -> int:
